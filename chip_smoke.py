@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. device: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi) and torch.cuda.get_device_name().
-2. build: compiles the five CUDA kernels (transmission_renderer_tpu_torch/
+2. build: compiles the six CUDA kernels (transmission_renderer_tpu_torch/
    csrc), one nvcc per source in parallel, into the package's _build/.
 3. scene: the flagship exactly as tests/golden_defs.py::render_hd_golden
    builds it: the procedural DragonAttenuation analogue (roughness 0.25,
@@ -49,13 +49,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    within phase 4's tolerance, the launches as in (c), a finite image
    within RMSE 0.03 of the full-res one (the bound of
    tests/test_rt_shadows.py), and its median ms/frame.
+8. the visibility-buffer frame: the same scene and camera with
+   RenderConfig(width=1920, height=1080, use_pallas_raster=False), the
+   branch of the reference that rendered dragon_hd.png (materialised bins
+   capped at 2048 triangles a tile, the visibility raster, the tensor
+   shade). (a) kernel 6's two calls of the frame through the kernel and
+   its plain version, in the frame's XLA-raster order and again in
+   kernel-6 order: triangle ids equal, depth <= 1e-7, barycentrics
+   <= 1e-6; (b) with the counts reset, the frame launches raster_vis 2
+   and no other kernel; (c) its image is finite and in [0, 1], and its
+   FrameDiagnostics equal the reference's for this frame
+   (HD_VIS_DIAGNOSTICS: the busiest bin holds 5456 triangles against 2048,
+   so overflowed() is true); (d) sRGB RMSE < 4e-3 against dragon_hd.png
+   over the whole frame, the RMSE inside GOLDEN_DROPPED_TILES printed
+   beside it; (e) median ms/frame over 10 frames after 2 warm-ups,
+   per-pass ms, and kernel 6's ms per frame beside its plain version's
+   (replayed once) and its bound.
 
-The kernels JSON object reports every kernel on the ray-traced frame, the
-widest path this script drives: launches, worst parity error over every
-frame checked, ms per frame of the kernel and of its plain version, and the
-least time the card could take (bound_ms, from the bytes and operations
-of the frame's own calls, see kernel_work) with what bounds it.
-library_ms is null: no single PyTorch call computes any of these
+The kernels JSON object reports every kernel on the widest path that
+launches it: kernels 1-5 on the ray-traced frame (phase 7), kernel 6 on
+the visibility-buffer frame (phase 8): launches, worst parity error over
+every frame checked, ms per frame of the kernel and of its plain version,
+and the least time the card could take (bound_ms, from the bytes and
+operations of the frame's own calls, see kernel_work) with what bounds
+it. library_ms is null: no single PyTorch call computes any of these
 functions (PERF.md gives the reason for each).
 
 The second-to-last lines are the kernels JSON object and the card's name
@@ -236,6 +253,16 @@ def kernel_work(name: str, call, pops=None) -> tuple:
         # 5 planes in, 5 out; two tent-weighted bilinear level taps of 3
         # channels and a bilinear LUT tap of 2
         return 5 * m * 4 + levels + args[7].nbytes + 5 * m * 4, m * 80
+    if name == "raster_vis":
+        recs, big, tile_ids, _, run_count, big_count, _, _, tile_w, tile_h = args
+        k, px = tile_ids.numel(), tile_ids.numel() * tile_w * tile_h
+        runs, nbig = int(run_count.sum()), int(big_count[0])
+        seeded = kwargs.get("init_depth_tiles") is not None
+        # each walked record (16 floats) read once, the tile list, the seed
+        # depth, and the four [K, th, tw] outputs; per pixel and record
+        # three edge functions, the w and z sums, a divide and 8 tests
+        nbytes = (runs + nbig) * 64 + k * 12 + 4 + px * 4 * (seeded + 4)
+        return nbytes, (runs + k * nbig) * tile_w * tile_h * 31
     if name == "bvh_occlusion":
         _, table, rays, _ = args
         inner, leaf = pops
@@ -286,6 +313,10 @@ def parity(name, got, ref):
             tol = (0.0 if key in INT_CHANNELS else 1e-7 if key == "depth"
                    else 1e-4 + 1e-3 * r.abs())
             bad += int((d > tol).sum())
+        return err, bad, bad == 0
+    if name == "raster_vis":
+        # tri ids equal, depth 1e-7, barycentrics 1e-6
+        bad = sum(int((d > tol).sum()) for (d, _), tol in zip(diffs, (0.0, 1e-7, 1e-6, 1e-6)))
         return err, bad, bad == 0
     if name == "shade":
         # 1e-5 on all but 0.05% of the pixels (log2f/cosf ulps can move a
@@ -397,6 +428,29 @@ def count_launches(handles, frame, **kw):
 GOLDEN_DROPPED_TILES = (277, 292, 1192, 1207, 1222)
 
 
+# FrameDiagnostics of the reference's visibility-buffer frame at the
+# golden's config (render_frame(golden_defs.CFG_HD) on the CPU, the branch
+# that rendered dragon_hd.png), read once from the reference and pinned:
+# the transmission pass's busiest bin holds 5456 triangles against the
+# 2048 the bins keep, so overflowed() is true. tests/test_torch_frame.py
+# and tests/test_torch_vis_frame.py recompute the binning-decided fields.
+HD_VIS_DIAGNOSTICS = {
+    "max_bin_count": 5456, "bin_capacity": 2048, "big_tri_count": 4,
+    "big_tri_capacity": 256, "opaque_blocks": 0, "opaque_block_capacity": 0,
+    "transmission_blocks": 2156, "transmission_block_capacity": 4050,
+    "clip_unresolved": 0, "mid_tri_count": 0, "mid_tri_capacity": 0,
+    "transmission_tiles": 0, "transmission_tile_capacity": 0, "clip_tiles": 0,
+    "clip_tile_capacity": 0, "tier_overflow": 0, "clip_round_demand": (),
+    "clip_round_caps": (), "pair_demand": 0, "pair_capacity": 0,
+}
+
+
+def diagnostics_dict(diag) -> dict:
+    """FrameDiagnostics -> {field: int, or tuple of ints}."""
+    return {f: tuple(int(x) for x in v) if isinstance(v, tuple) else int(v)
+            for f, v in zip(diag._fields, diag)}
+
+
 def golden_keep_mask(cfg):
     """[H, W] bool: False on the pixels of GOLDEN_DROPPED_TILES."""
     keep = np.ones(cfg.tiles_x * cfg.tiles_y, bool)
@@ -422,7 +476,7 @@ def main() -> int:
     from transmission_renderer_tpu_torch import kernels
     from transmission_renderer_tpu_torch.config import RenderConfig
     from transmission_renderer_tpu_torch.models.procedural import build_dragon_scene
-    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_gbuf, tap_finish
+    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_gbuf, raster_vis, tap_finish
     from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
     from transmission_renderer_tpu_torch.render import shade_kernel
     from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
@@ -637,6 +691,73 @@ def main() -> int:
     med = statistics.median(times)
     log(f"rt half-res frame 1920x1080 on [{card}]: median {med:.3f} ms/frame "
         f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
+
+    # ---- 8. the visibility-buffer frame ------------------------------------------
+    cfg_vis = RenderConfig(width=1920, height=1080, use_pallas_raster=False)
+
+    def vis_frame(**kw):
+        return render_frame(scene, dl, params, lights, cfg_vis, flags, **kw)
+
+    vis_handles = rt_handles + (raster_vis.KERNEL,)
+    # (a) kernel 6 on the frame's own inputs, in both orders
+    vis_calls = capture((raster_vis.KERNEL,), vis_frame)
+    require(len(vis_calls["raster_vis"]) == 2,
+            f"raster_vis: {len(vis_calls['raster_vis'])} calls, expected 2")
+    check_parity((raster_vis.KERNEL,), vis_calls, max_err, "vis ")
+    k6_calls = {"raster_vis": [(a, dict(kw, xla_order=False))
+                               for a, kw in vis_calls["raster_vis"]]}
+    check_parity((raster_vis.KERNEL,), k6_calls, max_err, "vis kernel-6 order ")
+
+    # (b) + (c) one frame with the counts reset
+    (img_vis, diag), vis_launches = count_launches(vis_handles, vis_frame,
+                                                   return_diagnostics=True)
+    log(f"vis launches per frame: {vis_launches}")
+    expect = dict.fromkeys(vis_launches, 0)
+    expect["raster_vis"] = 2
+    require(vis_launches == expect, f"vis launch counts {vis_launches}, expected {expect}")
+    require(tuple(img_vis.shape) == (1080, 1920, 3), f"vis image shape {tuple(img_vis.shape)}")
+    require(bool(torch.isfinite(img_vis).all()), "vis image has non-finite values")
+    lo, hi = float(img_vis.min()), float(img_vis.max())
+    require(0.0 <= lo and hi <= 1.0, f"vis image outside [0, 1]: [{lo}, {hi}]")
+    got_diag = diagnostics_dict(diag)
+    log(f"vis diagnostics: {got_diag}, overflowed {diag.overflowed()}")
+    bad = {f: (v, HD_VIS_DIAGNOSTICS[f]) for f, v in got_diag.items()
+           if v != HD_VIS_DIAGNOSTICS[f]}
+    require(not bad, f"vis diagnostics differ from the reference's (got, expected): {bad}")
+    require(diag.overflowed(), "vis: the reference's bins overflow on this frame")
+
+    # (d) the golden, whole frame
+    srgb = linear_to_srgb(img_vis.cpu().numpy())
+    rmse_full = float(np.sqrt(np.mean((srgb - golden) ** 2)))
+    rmse_in = float(np.sqrt(np.mean((srgb[~keep] - golden[~keep]) ** 2)))
+    rmse_out = float(np.sqrt(np.mean((srgb[keep] - golden[keep]) ** 2)))
+    log(f"vis golden dragon_hd.png: sRGB RMSE {rmse_full:.6f} over the whole frame "
+        f"(limit 4e-3); {rmse_in:.6f} inside the {excluded} pixels of "
+        f"GOLDEN_DROPPED_TILES, {rmse_out:.6f} outside them")
+    require(rmse_full < 4e-3, f"vis sRGB RMSE {rmse_full} vs golden")
+
+    # (e) timing
+    times = timed_frames(vis_frame, 2, 10)
+    med = statistics.median(times)
+    log(f"vis frame 1920x1080 on [{card}]: median {med:.3f} ms/frame "
+        f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
+    profile_passes(vis_frame, card, PASS_NAMES)
+    h = raster_vis.KERNEL
+    k_ms = p_ms = 0.0
+    for call in vis_calls[h.name]:
+        k_ms += cuda_ms(lambda: h.replay(call, True), 20)
+        p_ms += cuda_ms(lambda: h.replay(call, False), 1, warmup=False)
+    works = [kernel_work(h.name, c) for c in vis_calls[h.name]]
+    b_ms, b_by = bound_of(works)
+    log(f"vis kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame, plain {p_ms:.3f} "
+        f"ms/frame, bound {b_ms:.4f} ms by {b_by} ({sum(w[0] for w in works)} bytes, "
+        f"{sum(w[1] for w in works)} operations), {b_ms / k_ms:.4f} of the bound "
+        f"reached, {len(vis_calls[h.name])} call(s) per frame")
+    kernel_rows.append({
+        "name": h.name, "route": "cuda", "source": h.source, "replaces": h.replaces,
+        "launches": vis_launches[h.name], "max_abs_err": None, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
 
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]

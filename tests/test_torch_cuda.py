@@ -2,8 +2,10 @@
 at small shapes: one frame of each scene without ray-traced shadows,
 with them, and with them traced at half resolution (kernel 5, and kernel
 3 reading shadow factors, upsampled ones in the last), and kernel 5
-alone on a small mesh. Marked ``cuda``: on a host without a CUDA device
-they skip (the check runs inside the fixture, never at import).
+alone on a small mesh; kernel 6 (the visibility raster) in both walk
+orders on random scenes, and the visibility-buffer frame of each scene.
+Marked ``cuda``: on a host without a CUDA device they skip (the check
+runs inside the fixture, never at import).
 
 Run on a machine with the card (which has no JAX, so skip the suite's
 conftest.py, which imports it):
@@ -210,3 +212,148 @@ def test_bvh_occlusion_small_mesh():
     ref = bvh.trace_occlusion_plain(tree, table.cpu(), rays.cpu())
     assert bool(ref.any()) and not bool(ref.all())
     assert torch.equal(got.cpu(), ref)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the visibility raster
+# ---------------------------------------------------------------------------
+
+def _vis_scene(seed, n_tris=400, w=256, h=64):
+    """Crowded small triangles and two floor triangles whose full-screen
+    bboxes send them to the big list -> (clip [V, 4], tris [T, 3]) numpy."""
+    from transmission_renderer_tpu_torch.scene.camera import (
+        look_at_rh, perspective_matrix_reversed)
+
+    rng = np.random.default_rng(seed)
+    pv = perspective_matrix_reversed(w, h) @ look_at_rh(
+        (0.0, 1.0, 0.0), (0.0, 0.5, -3.0), (0, 1, 0))
+    s = 50.0
+    plane = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]], np.float32)
+    centres = rng.uniform(-1.5, 1.5, (n_tris, 1, 3)) * [1.5, 0.4, 1.0] + [0.0, 0.9, -3.0]
+    pts = (centres + rng.uniform(-0.3, 0.3, (n_tris, 3, 3))).reshape(-1, 3)
+    pos = np.concatenate([plane, pts]).astype(np.float32)
+    tris = np.concatenate([[[0, 2, 1], [0, 3, 2]],
+                           np.arange(3 * n_tris).reshape(n_tris, 3) + 4]).astype(np.int32)
+    ph = np.concatenate([pos, np.ones((len(pos), 1), np.float32)], -1)
+    return (ph @ pv.T).astype(np.float32), tris
+
+
+def _vis_compare(got, ref):
+    """Triangle ids equal, depth within 1e-7, barycentrics within 1e-6."""
+    g = [t.cpu().numpy() for t in got]
+    r = [t.cpu().numpy() for t in ref]
+    np.testing.assert_array_equal(g[0], r[0])
+    np.testing.assert_allclose(g[1], r[1], atol=1e-7, rtol=0)
+    for a, b in zip(g[2:], r[2:]):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    assert (r[0] >= 0).sum() > 1000
+
+
+@pytest.mark.parametrize("case", ["kernel6", "kernel6-class0", "kernel6-class1",
+                                  "xla-128x8", "xla-32x8", "xla-cut", "xla-seeded"])
+def test_raster_vis_matches_plain(case):
+    """Kernel 6 launched through rasterize_pallas (kernel-6 order) and
+    rasterize (XLA-raster order) on CUDA tensors vs the plain version on
+    the same tensors on the CPU: class-filtered passes, 32x8 tiles, bins
+    cut below the busiest tiles' counts, and a seeded depth race."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster, raster_vis
+
+    w, h = 256, 64
+    clip, tris = _vis_scene(7)
+    tw, th = (32, 8) if case == "xla-32x8" else (128, 8)
+    cap = 12 if case == "xla-cut" else 1024
+    rng = np.random.default_rng(5)
+    cls = torch.from_numpy(rng.integers(0, 2, len(tris)).astype(np.int32))
+    init = np.zeros((h, w), np.float32)
+    init[:, : w // 4] = 0.9
+    init[:, w // 4:] = np.linspace(0.0, 4e-3, w - w // 4, dtype=np.float32)
+
+    def run(dev):
+        setup = raster.setup_triangles(torch.from_numpy(clip).to(dev),
+                                       torch.from_numpy(tris).to(dev),
+                                       torch.ones(len(tris), dtype=torch.bool, device=dev),
+                                       w, h, tw, th)
+        bins = raster.bin_triangles_materialized(setup, -(-w // tw), -(-h // th), 8, cap, 16)
+        assert int(bins.big_tri_count) == 2
+        seed = torch.from_numpy(init).to(dev) if case == "xla-seeded" else None
+        if case.startswith("kernel6"):
+            pc = int(case[-1]) if "class" in case else None
+            payload = (raster_vis.gather_bin_payload(setup, bins, cls.to(dev))
+                       if pc is not None else None)
+            vis = raster_vis.rasterize_pallas(setup, bins, w, h, pass_class=pc,
+                                              payload=payload)
+        else:
+            vis = raster_vis.rasterize(setup, bins, w, h, tw, th, init_depth=seed)
+        if case == "xla-cut":
+            assert int(bins.max_bin_count) > cap
+        return vis
+
+    before = raster_vis.KERNEL.launches
+    got = run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert raster_vis.KERNEL.launches == before + 1
+    ref = run(torch.device("cpu"))
+    assert raster_vis.KERNEL.launches == before + 1  # the CPU run launched nothing
+    _vis_compare((got.tri_id, got.depth, got.bary[..., 0], got.bary[..., 1]),
+                 (ref.tri_id, ref.depth, ref.bary[..., 0], ref.bary[..., 1]))
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def vis_captured(request):
+    """One small visibility-buffer frame (use_pallas_raster=False) of a
+    scene on the card, every kernel call recorded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_vis
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    dev = torch.device("cuda")
+    scene, dl, flags = SCENES[request.param]().finish_bundle(device=dev)
+    cfg = RenderConfig(width=200, height=120, tile_w=32, tile_h=8, use_pallas_raster=False)
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
+    rig.camera.pitch = -0.25
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device=dev)
+    lights = pack_lights([
+        point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0),
+        _spot_light([-1.0, 2.5, -3.0], [0.3, 0.4, 1.0], 14.0, [0.3, -1.0, -0.2], 0.3, 0.7),
+    ], device=dev)
+    handles = _handles() + (raster_vis.KERNEL,)
+    for h in handles:
+        h.recorder = []
+        h.launches = 0
+    img = render_frame(scene, dl, params, lights, cfg, flags)
+    torch.cuda.synchronize()
+    out = {h.name: (h.recorder, h.launches) for h in handles}
+    for h in handles:
+        h.recorder = None
+    return request.param, img, out
+
+
+def test_vis_frame_launches_only_raster_vis(vis_captured):
+    name, img, out = vis_captured
+    glass = name == "dragon"
+    assert {n: launches for n, (_, launches) in out.items()} == {
+        "raster_gbuf": 0, "tap_finish": 0, "shade": 0, "transmission_fetch": 0,
+        "bvh_occlusion": 0, "raster_vis": 1 + glass}
+    assert bool(torch.isfinite(img).all())
+
+
+def test_vis_frame_raster_matches_plain(vis_captured):
+    """The frame's own kernel-6 calls (XLA-raster order, the transmissive
+    one seeded with the opaque depth) through the kernel and the plain
+    version, and again in kernel-6 order."""
+    from transmission_renderer_tpu_torch.ops import raster_vis
+
+    _, _, out = vis_captured
+    calls, _ = out["raster_vis"]
+    for args, kwargs in calls:
+        for order in (True, False):
+            call = (args, dict(kwargs, xla_order=order))
+            _vis_compare(raster_vis.KERNEL.replay(call, True),
+                         raster_vis.KERNEL.replay(call, False))

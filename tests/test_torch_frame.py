@@ -191,22 +191,31 @@ def test_sparse_block_helpers_match_reference():
 
 
 def test_unported_branches_refuse():
-    """Branches outside the slice raise NotImplementedError (no silent
-    detour)."""
-    scene, dl, flags = build_dragon_scene(stacks=8, sectors=16).finish_bundle(device="cpu")
+    """Branches outside the port raise NotImplementedError (no silent
+    detour): on the kernel branch the options it lacks, a width that is
+    not a multiple of 128 and alpha clip; on the visibility-buffer branch
+    alpha clip and ray-traced shadows."""
+    builder = build_dragon_scene(stacks=8, sectors=16)
+    scene, dl, flags = builder.finish_bundle(device="cpu")
     rig = _rig(*CAM)
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
-    for bad in (dataclasses.replace(CFG, use_pallas_raster=False),
-                dataclasses.replace(CFG, debug_clusters=True),
+    vis = dataclasses.replace(CFG, use_pallas_raster=False)
+    for bad in (dataclasses.replace(CFG, debug_clusters=True),
+                dataclasses.replace(vis, debug_clusters=True),
                 dataclasses.replace(CFG, opaque_block_cap_frac=0.5),
+                dataclasses.replace(CFG, half_res_refraction=True),
                 dataclasses.replace(CFG, sparse_raster_tile_floor=256),
                 dataclasses.replace(CFG, width=120)):
         params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,
                                    rig.sun_dir(), device="cpu")
         with pytest.raises(NotImplementedError):
             render_frame(scene, dl, params, lights, bad, flags)
+    for cfg in (CFG, vis):
+        params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                                   rig.sun_dir(), device="cpu")
+        with pytest.raises(NotImplementedError):
+            render_frame(scene, dl, params, lights, cfg, flags._replace(has_alpha_clip=True))
     with pytest.raises(NotImplementedError):
-        render_frame(scene, dl, make_frame_params(CFG, rig.camera.view_matrix(),
-                                                  rig.camera.position, rig.sun_dir(),
-                                                  device="cpu"),
-                     lights, CFG, flags._replace(has_alpha_clip=True))
+        render_frame(scene, dl, params, lights,
+                     dataclasses.replace(vis, ray_traced_shadows=True), flags,
+                     bvh=builder.build_rt_bvh(device="cpu"))

@@ -217,21 +217,26 @@ def test_dragon_binning_exact():
     rig.camera.pitch = -0.25
     params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir())
-    # reference chain, as render_frame runs it (frame.py:984-1104)
-    inst_t = Similarity(*(a[dl.vtx_inst] for a in scene.inst_transform))
-    world = similarity_apply(inst_t, scene.positions[dl.vtx_src])
-    pos_h = jnp.concatenate([world, jnp.ones_like(world[:, :1])], -1)
-    clip = pos_h @ params.proj_view.T
-    vis = jcull.cull_instances(scene, params.view, params.frustum_x_xz,
-                               params.frustum_y_yz, cfg.z_near)
-    mask = jcull.bucket_triangle_masks(dl.tri_inst, dl.tri_bucket, vis,
-                                       (BUCKET_OPAQUE, BUCKET_TRANSMISSION))
-    cls = (dl.tri_bucket == BUCKET_TRANSMISSION).astype(jnp.int32)
-    setup = jraster.setup_triangles(clip, dl.tri_vtx, mask, W, H, 128, 8)
-    ref = jraster.bin_triangles(setup, 2, 8, cfg.pallas_tiles_per_tri, 2048, 32,
-                                materialize=False, class_flags=cls, num_classes=2,
-                                mid_tile_cap=128, max_mid_tris=512,
-                                tiers=cfg.pallas_tiers)
+    # reference chain, compiled as render_frame runs it (frame.py:984-1104):
+    # the backface cull's determinant rounds as in the jitted frame
+    @jax.jit
+    def chain(scene, dl, params):
+        inst_t = Similarity(*(a[dl.vtx_inst] for a in scene.inst_transform))
+        world = similarity_apply(inst_t, scene.positions[dl.vtx_src])
+        pos_h = jnp.concatenate([world, jnp.ones_like(world[:, :1])], -1)
+        clip = pos_h @ params.proj_view.T
+        vis = jcull.cull_instances(scene, params.view, params.frustum_x_xz,
+                                   params.frustum_y_yz, cfg.z_near)
+        mask = jcull.bucket_triangle_masks(dl.tri_inst, dl.tri_bucket, vis,
+                                           (BUCKET_OPAQUE, BUCKET_TRANSMISSION))
+        cls = (dl.tri_bucket == BUCKET_TRANSMISSION).astype(jnp.int32)
+        setup = jraster.setup_triangles(clip, dl.tri_vtx, mask, W, H, 128, 8)
+        return world, clip, jraster.bin_triangles(
+            setup, 2, 8, cfg.pallas_tiles_per_tri, 2048, 32, materialize=False,
+            class_flags=cls, num_classes=2, mid_tile_cap=128, max_mid_tris=512,
+            tiers=cfg.pallas_tiers)
+
+    world, clip, ref = chain(scene, dl, params)
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     s, d_, p, _, _ = bridge.from_jax_arrays(as_np(scene), as_np(dl), as_np(params),
                                             _lights_np(), flags, device="cpu")

@@ -136,7 +136,7 @@ def test_port_runs_without_jax_pil_ml_dtypes():
         builder = build_dragon_scene(stacks=40, sectors=80)
         scene, dl, flags = builder.finish_bundle(device="cpu")
         cfg = RenderConfig(width=128, height=72, sparse_raster_tile_floor=1,
-                           transmission_tile_cap_frac=0.85)
+                           transmission_tile_cap_frac=0.85, use_pallas_raster=True)
         rig = CameraRig()
         rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
         rig.camera.pitch = -0.25
@@ -154,6 +154,13 @@ def test_port_runs_without_jax_pil_ml_dtypes():
         assert bool(torch.isfinite(img_rt).all()) and not diag.overflowed()
         # shadows only remove light
         assert bool((hdr_rt <= hdr).all()) and bool((hdr_rt < hdr - 0.05).any())
+        # the visibility-buffer branch (the CPU default) with its tensor shade
+        vis = dataclasses.replace(cfg, use_pallas_raster=None)
+        img_vis, diag = render_frame(scene, dl, params, lights, vis, flags,
+                                     return_diagnostics=True)
+        assert bool(torch.isfinite(img_vis).all()) and not diag.overflowed()
+        assert int(diag.transmission_tiles) == 0 and int(diag.transmission_blocks) > 0
+        assert float((img_vis - img).abs().mean()) < 0.01
         assert read_png("tests/goldens/dragon.png").shape == (72, 128, 4)
         loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
         assert not loaded & {"jax", "transmission_renderer_tpu"}, loaded

@@ -11,8 +11,9 @@ package: where it needs a JAX-free module of the reference (the
 ``RenderConfig``, the GGX LUT bake), it keeps its own copy
 (``config.py``, ``utils/ggx_lut.py``).
 
-Plain tensor work is PyTorch. Every Pallas kernel on the ported paths
-(the flagship frame, and the frame with ray-traced shadows) is a
+Plain tensor work is PyTorch. Every Pallas kernel of the reference (on
+the flagship frame, the frame with ray-traced shadows and the
+visibility-buffer frame) is a
 hand-written CUDA C++ kernel for Hopper (``csrc/``), built with ``nvcc``
 at first use (``kernels.py``). Each kernel's wrapper takes its plain
 PyTorch version for CPU tensors and launches the kernel for CUDA

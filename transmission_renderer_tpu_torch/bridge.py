@@ -4,9 +4,10 @@
 Lights and SceneFlags whose arrays the caller has already turned into
 NumPy (``jax.tree_util.tree_map(np.asarray, x)``) and returns the port's
 NamedTuples of tensors on ``device``, so both packages compute on
-identical inputs. It reads fields by name and imports no JAX code of
-either package. The bfloat16 atlas (an ``ml_dtypes`` array) crosses by
-bit pattern.
+identical inputs; ``vis_buffer`` and ``tile_bins`` do the same for a
+VisibilityBuffer and materialised TileBins. Fields are read by name and
+no JAX code of either package is imported. The bfloat16 atlas (an
+``ml_dtypes`` array) crosses by bit pattern.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from transmission_renderer_tpu_torch.ops.raster import TileBins, VisibilityBuffer
 from transmission_renderer_tpu_torch.pbr.lights import Lights
 from transmission_renderer_tpu_torch.render.frame import (
     DrawList,
@@ -40,6 +42,20 @@ def to_tensor(a, device=CARD) -> torch.Tensor:
 
 def _convert(obj, cls, device):
     return cls(*(to_tensor(getattr(obj, f), device) for f in cls._fields))
+
+
+def vis_buffer(vis, device=CARD) -> VisibilityBuffer:
+    """The reference's VisibilityBuffer (arrays or NumPy) -> the port's."""
+    return _convert(vis, VisibilityBuffer, device)
+
+
+def tile_bins(bins, device=CARD) -> TileBins:
+    """The reference's materialised TileBins (``bin_triangles(...,
+    materialize=True)``) -> the port's, field by field."""
+    device = resolve_device(device)
+    fields = {f: to_tensor(getattr(bins, f), device) for f in TileBins._fields
+              if f not in ("tier_demands", "tier_slots")}
+    return TileBins(**fields)
 
 
 def from_jax_arrays(scene, dl, params, lights, flags, device=CARD):

@@ -38,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("raster_gbuf.cu", "tap_finish.cu", "shade.cu", "transmission_fetch.cu",
-           "bvh_occlusion.cu")
+           "bvh_occlusion.cu", "raster_vis.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

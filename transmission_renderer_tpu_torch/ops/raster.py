@@ -2,15 +2,20 @@
 
 Counterpart of ``transmission_renderer_tpu/ops/raster.py``:
 ``setup_triangles`` (2D-homogeneous adjugate edge functions, backface and
-off-screen culls, tile bounding boxes), ``bin_triangles`` in the mode the
-G-buffer kernel path uses (``materialize=False``, class-split bins, the
-``pallas_tiers`` demotion ladder, no pair compaction) and
+off-screen culls, tile bounding boxes), ``VisibilityBuffer``, both modes
+of ``bin_triangles`` (``bin_triangles``: the G-buffer kernel path's
+``materialize=False`` mode with class-split bins, the ``pallas_tiers``
+demotion ladder and no pair compaction; ``bin_triangles_materialized``:
+the visibility-buffer path's ``materialize=True`` mode with capped
+per-tile lists and a separate big-triangle list) and
 ``tile_image`` / ``untile_image``.
 
 Binning order is part of the result: records of a tile sort by the two
 keys (tile * num_classes + class, triangle id), and the raster keeps the
 first record on equal depth, so the same order gives the same triangle
-ids. The pure raster path (``rasterize``) is later work.
+ids. The visibility raster that walks the materialised bins (the
+reference's ``rasterize_tilelist`` / ``rasterize``) sits with its kernel
+in ``ops/raster_vis.py``.
 """
 
 from __future__ import annotations
@@ -30,17 +35,30 @@ class TriangleSetup(NamedTuple):
     tile_bbox: torch.Tensor  # [T, 4] int32 (tx0, ty0, tx1, ty1) inclusive
 
 
-class TileBins(NamedTuple):
-    """Class-split sorted (bin, triangle) pairs for the G-buffer kernel."""
+class VisibilityBuffer(NamedTuple):
+    tri_id: torch.Tensor  # [H, W] int32, -1 = background
+    depth: torch.Tensor  # [H, W] f32 reversed-Z (0 = cleared/far)
+    bary: torch.Tensor  # [H, W, 2] perspective-correct (b1, b2)
 
-    sorted_tri_ids: torch.Tensor  # [S] int32 (-1 = sentinel, sorts last)
+
+class TileBins(NamedTuple):
+    """Sorted (bin, triangle) pairs: class-split for the G-buffer kernel
+    (``bin_triangles``), or one bin per tile with the capped per-tile
+    lists and the big-triangle list of the visibility-buffer path
+    (``bin_triangles_materialized``)."""
+
+    sorted_tri_ids: torch.Tensor  # [S] int32 (sentinel pairs sort last)
     tile_start: torch.Tensor  # [num_classes * n_tiles + 1] int32
-    big_tri_ids: torch.Tensor  # [1] int32 all -1: demoted tris ride the stream
-    big_tri_count: torch.Tensor  # [] int32 unclamped giant-tier demand
+    big_tri_ids: torch.Tensor  # [B] int32, -1 padded ([1] all -1: none)
+    big_tri_count: torch.Tensor  # [] int32 (see each binning's docstring)
     max_bin_count: torch.Tensor  # [] int32 busiest bin, unclamped
     mid_tri_count: torch.Tensor  # [] int32 (0: the ladder replaces it)
     tier_demands: tuple = ()  # per-rung unclamped demand ([] int32 each)
     tier_slots: tuple = ()  # per-rung static capacity
+    # materialised mode only: [n_tiles, max_tris_per_tile] -1 padded, and
+    # the per-tile counts clamped to max_tris_per_tile
+    tile_tri_ids: torch.Tensor | None = None
+    tile_tri_count: torch.Tensor | None = None
 
 
 def _adjugate3(m: torch.Tensor) -> torch.Tensor:
@@ -66,12 +84,16 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
-    """Determinant of [..., 3, 3] exactly as the reference computes it:
-    jnp.linalg.det's rule-of-Sarrus closed form, which its compiler
-    contracts into a chain of fused multiply-adds. Bit-equal values keep
-    the backface cull's decisions equal, down to the sign of degenerate
+    """Determinant of [..., 3, 3] exactly as the reference's jitted frame
+    computes it: jnp.linalg.det's rule-of-Sarrus closed form, whose first
+    five products its compiler chains through fused multiply-adds while
+    the last one is subtracted unfused. Bit-equal values keep the
+    backface cull's decisions equal, down to the sign of degenerate
     triangles (two equal vertices, as at a sphere's poles), whose
-    unfused determinant would be exactly 0."""
+    unfused determinant would be exactly 0. Those never cover a pixel,
+    but they fill bins, and the visibility-buffer path cuts its bins at
+    ``max_tris_per_tile``. (A standalone jnp.linalg.det call fuses the
+    last product too.)"""
     def g(i, j):
         return m[..., i, j]
 
@@ -79,7 +101,7 @@ def _det3(m: torch.Tensor) -> torch.Tensor:
     s = _fma(g(0, 2) * g(1, 0), g(2, 1), s)
     s = _fma(-(g(0, 2) * g(1, 1)), g(2, 0), s)
     s = _fma(-(g(0, 0) * g(1, 2)), g(2, 1), s)
-    return _fma(-(g(0, 1) * g(1, 0)), g(2, 2), s)
+    return s - g(0, 1) * g(1, 0) * g(2, 2)
 
 
 def _tile_index(v: torch.Tensor, tile: int, n: int) -> torch.Tensor:
@@ -221,18 +243,9 @@ def bin_triangles(
         parts_b.append(b)
         parts_t.append(t)
     giant_demand = demands[-1]
-    flat_bins = torch.cat(parts_b).to(torch.int64)
     flat_tris = torch.cat(parts_t)
-    flat_tris = torch.where(flat_tris >= num_tris, -1, flat_tris).to(torch.int64)
-
-    # two-key sort (bin, tri): tri-ascending within a bin is draw order
-    key = flat_bins * (1 << 32) + (flat_tris + 1)
-    key, _ = torch.sort(key)
-    sorted_bins = key >> 32
-    sorted_tris = ((key & 0xFFFFFFFF) - 1).to(torch.int32)
-    tile_start = torch.searchsorted(
-        sorted_bins, torch.arange(n_bins + 1, dtype=torch.int64, device=dev)
-    ).to(torch.int32)
+    flat_tris = torch.where(flat_tris >= num_tris, -1, flat_tris)
+    sorted_tris, tile_start = _sort_pairs(torch.cat(parts_b), flat_tris, n_bins)
     raw_counts = tile_start[1:] - tile_start[:-1]
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     return TileBins(
@@ -244,6 +257,75 @@ def bin_triangles(
         mid_tri_count=zero,
         tier_demands=tuple(demands),
         tier_slots=tuple(mn for _, _, mn in spans),
+    )
+
+
+def _sort_pairs(flat_bins: torch.Tensor, flat_tris: torch.Tensor, n_bins: int):
+    """Two-key sort of (bin, tri) pairs (tri-ascending within a bin is
+    draw order) -> (sorted tri ids int32, tile_start [n_bins + 1] int32)."""
+    key = flat_bins.to(torch.int64) * (1 << 32) + (flat_tris.to(torch.int64) + 1)
+    key, _ = torch.sort(key)
+    sorted_bins = key >> 32
+    sorted_tris = ((key & 0xFFFFFFFF) - 1).to(torch.int32)
+    tile_start = torch.searchsorted(
+        sorted_bins, torch.arange(n_bins + 1, dtype=torch.int64, device=key.device)
+    ).to(torch.int32)
+    return sorted_tris, tile_start
+
+
+def bin_triangles_materialized(
+    setup: TriangleSetup,
+    tiles_x: int,
+    tiles_y: int,
+    max_tiles_per_tri: int,
+    max_tris_per_tile: int,
+    max_big_tris: int,
+) -> TileBins:
+    """The visibility-buffer path's binning (the reference's
+    ``bin_triangles(materialize=True)``).
+
+    Triangles covering <= K tiles emit one (tile, tri) pair per covered
+    tile of their bbox; each tile's sorted run is cut to its first
+    ``max_tris_per_tile`` triangles (the rest are dropped, and
+    ``max_bin_count`` keeps the uncut maximum). Larger triangles go to
+    the big list, ascending ids cut to ``max_big_tris``;
+    ``big_tri_count`` is that list's length (clamped, as the reference's).
+    """
+    dev = setup.adj.device
+    n_tiles = tiles_x * tiles_y
+    num_tris = setup.adj.shape[0]
+    bbox = setup.tile_bbox
+    coverage = (bbox[:, 2] - bbox[:, 0] + 1) * (bbox[:, 3] - bbox[:, 1] + 1)
+    is_big = setup.valid & (coverage > max_tiles_per_tri)
+    in_bins = setup.valid & (coverage <= max_tiles_per_tri)
+    tri_ids = torch.arange(num_tris, dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(tri_ids)
+    flat_bins, flat_tris = _expand(tri_ids, bbox, max_tiles_per_tri, tiles_x, in_bins,
+                                   zeros, 1, n_tiles)
+    sorted_tris, tile_start = _sort_pairs(flat_bins, flat_tris, n_tiles)
+    raw_counts = tile_start[1:] - tile_start[:-1]
+    counts = torch.clamp(raw_counts, max=max_tris_per_tile)
+    slot = torch.arange(max_tris_per_tile, device=dev)
+    gather = torch.clamp(tile_start[:-1, None].long() + slot[None, :], 0,
+                         sorted_tris.shape[0] - 1)
+    tile_tri_ids = torch.where(slot[None, :] < counts[:, None], sorted_tris[gather], -1)
+
+    # big list: the is_big ids in ascending order (a stable sort puts them
+    # first), -1 past their number, cut or padded to max_big_tris
+    n_big = is_big.to(torch.int32).sum()
+    order = torch.argsort((~is_big).to(torch.uint8), stable=True).to(torch.int32)
+    big_ids = torch.where(tri_ids < n_big, order, -1)[:max_big_tris]
+    if num_tris < max_big_tris:
+        big_ids = torch.cat([big_ids, big_ids.new_full((max_big_tris - num_tris,), -1)])
+    return TileBins(
+        sorted_tri_ids=sorted_tris,
+        tile_start=tile_start,
+        big_tri_ids=big_ids,
+        big_tri_count=torch.clamp(n_big, max=max_big_tris).to(torch.int32),
+        max_bin_count=raw_counts.max().to(torch.int32),
+        mid_tri_count=torch.zeros((), dtype=torch.int32, device=dev),
+        tile_tri_ids=tile_tri_ids,
+        tile_tri_count=counts.to(torch.int32),
     )
 
 

@@ -3,12 +3,15 @@
 Counterpart of ``transmission_renderer_tpu/ops/texture.py``:
 ``_tap_footprint``, ``_level_meta_from_rows``, ``_class_geometry``,
 ``_flat_row_index``, ``atlas_classes``, ``sample_bundle_rows`` (the
-classic 2-level trilinear, ``fused=False``), ``quad_lut_2ch``,
-``lut_2ch_fetch_parts``, ``sample_lut_2ch_quad`` and ``sample_lut_2ch``.
+classic 2-level trilinear, ``fused=False``), ``select_layer``,
+``quad_lut_2ch``, ``lut_2ch_fetch_parts``, ``sample_lut_2ch_quad`` and
+``sample_lut_2ch``.
 
-These are the plain PyTorch oracles. On the frame's path the material
-tap runs as kernel 2 (ops/tap_finish.py::sample_bundle_planes) and the
-LUT tap inside kernel 4 (ops/tap_finish.py::transmission_fetch_planes).
+On the G-buffer kernel path the material tap runs as kernel 2
+(ops/tap_finish.py::sample_bundle_planes, whose plain version is
+``sample_bundle_rows``) and the LUT tap inside kernel 4
+(ops/tap_finish.py::transmission_fetch_planes); the tensor shading path
+of the visibility-buffer frame calls these functions directly.
 Conventions match Vulkan: texel centres at integer + 0.5, LOD 0 = full
 resolution; a sub-block select is an exact gather, the same value the
 reference's where-chain picks.
@@ -168,6 +171,14 @@ def sample_bundle_rows(
     frac = (lod - l0.to(torch.float32))[..., None]
     c0 = c0 + (c1 - c0) * frac
     return c0.reshape(c0.shape[:-1] + (l_max, 4))
+
+
+def select_layer(samples: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:
+    """[..., L, 4] bundle samples + [...] layer -> [..., 4] (a layer past
+    the bundle reads layer 0, as the reference's select chain)."""
+    layer = torch.where((layer >= 0) & (layer < samples.shape[-2]), layer, 0).long()
+    idx = layer[..., None, None].expand(layer.shape + (1, samples.shape[-1]))
+    return torch.gather(samples, -2, idx)[..., 0, :]
 
 
 # ---------------------------------------------------------------------------

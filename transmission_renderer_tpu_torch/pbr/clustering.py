@@ -1,7 +1,8 @@
 """Clustered forward lighting: cluster AABBs and light assignment.
 
 Counterpart of ``transmission_renderer_tpu/pbr/clustering.py``
-(cluster_coefficients, write_cluster_data, assign_lights_to_clusters).
+(cluster_coefficients, linear_depth, get_depth_slice, write_cluster_data,
+assign_lights_to_clusters).
 The assignment keeps the reference's order-preserving compaction with
 the 128-light clamp: each cluster lists its accepted lights in ascending
 id order, and that order is the sum order of the shade's light loop.
@@ -40,6 +41,22 @@ def cluster_coefficients(z_near: float, z_far: float,
 
 def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.float32(x), device=device)
+
+
+def linear_depth(coeffs: ClusterCoefficients, frag_depth: torch.Tensor) -> torch.Tensor:
+    """Reversed-Z fragment depth -> positive linear view distance
+    (shared-structs/src/lib.rs:54-58), in float32 with float32 constants."""
+    zn, zf = coeffs.z_near, coeffs.z_far
+    depth_range = 2.0 * (1.0 - frag_depth) - 1.0
+    return _f32(2.0 * zn * zf, frag_depth.device) / ((zf + zn) - depth_range * (zf - zn))
+
+
+def get_depth_slice(coeffs: ClusterCoefficients, frag_depth: torch.Tensor) -> torch.Tensor:
+    """Fragment depth -> cluster z slice (shared-structs/src/lib.rs:61-63),
+    int32 (not clamped to the slice count)."""
+    slice_f = (torch.log2(linear_depth(coeffs, frag_depth)) * float(np.float32(coeffs.scale))
+               + float(np.float32(coeffs.bias)))
+    return torch.clamp(slice_f, min=0.0).to(torch.int32)
 
 
 def slice_to_depth(coeffs: ClusterCoefficients, slice_idx: torch.Tensor):

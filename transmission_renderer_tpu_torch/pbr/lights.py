@@ -1,7 +1,7 @@
 """Light table — struct-of-arrays mirror of the reference's ``Light``.
 
 Counterpart of ``transmission_renderer_tpu/pbr/lights.py`` (Lights,
-point_light, pack_lights).
+point_light, pack_lights, spotlight_factor).
 """
 
 from __future__ import annotations
@@ -57,3 +57,12 @@ def pack_lights(lights: list[dict], device=CARD) -> Lights:
         return torch.from_numpy(v).to(device)
 
     return Lights(*(col(k) for k in Lights._fields))
+
+
+def spotlight_factor(direction_to_light, spot_direction, spot_outer_angle,
+                     spot_epsilon) -> torch.Tensor:
+    """Smooth spot cone falloff (shared-structs/src/lib.rs:129-138);
+    unclamped above 1 inside the inner cone, as the reference."""
+    d = -direction_to_light * spot_direction
+    theta = (d[..., 0] + d[..., 1]) + d[..., 2]
+    return torch.clamp((theta - torch.cos(spot_outer_angle)) / spot_epsilon, min=0.0)

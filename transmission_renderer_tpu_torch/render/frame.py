@@ -1,23 +1,32 @@
-"""render_frame — the flagship frame on PyTorch and the CUDA kernels.
+"""render_frame — the frame on PyTorch and the CUDA kernels.
 
 Counterpart of ``transmission_renderer_tpu/render/frame.py``: DrawList,
 SceneFlags and their host derivation (expand_draw_list_numpy,
 build_draw_list_from_numpy, scene_flags_from_arrays),
 refraction_level_set, FrameDiagnostics, FrameParams, make_frame_params,
-_static_cluster_data, _class_tile_worklist, _tile_cap and render_frame.
+_static_cluster_data, _class_tile_worklist, _tile_cap, _gather_gbuffer
+and render_frame, on both raster branches of the reference:
 
-``render_frame`` covers the branch the flagship takes in the reference:
-the G-buffer raster kernel with class-split binning (frame.py:1073-1158),
-no alpha clip, ``w % 128 == 0``, the fused-kernel shade, and the fused
-sparse transmission path (frame.py:1374-1416, 1486-1528), with or
-without ray-traced shadows (frame.py:1007-1016, 1222-1277, 1492-1506).
-Pass order: vertex transform + cull (+ BVH refit), setup + binning,
-payload, opaque raster (kernel 1), clustering, opaque shadow rays
-(kernel 5), opaque shade (kernels 2 + 3), mip pyramid, sparse
-transmissive raster (kernel 1), transmission shadow rays (kernel 5),
-transmission shade (kernels 3 + 4), tonemap. Every other branch raises
-NotImplementedError naming its ROADMAP item: the port never takes a
-silent detour.
+- the G-buffer kernel branch (the flagship on the card; frame.py:1073-1158):
+  class-split binning, the G-buffer raster (kernel 1), the fused sparse
+  transmission path (frame.py:1374-1416, 1486-1528), with or without
+  ray-traced shadows (frame.py:1007-1016, 1222-1277, 1492-1506). Pass
+  order: vertex transform + cull (+ BVH refit), setup + binning, payload,
+  opaque raster (kernel 1), clustering, opaque shadow rays (kernel 5),
+  opaque shade (kernels 2 + 3), mip pyramid, sparse transmissive raster
+  (kernel 1), transmission shadow rays (kernel 5), transmission shade
+  (kernels 3 + 4), tonemap.
+- the visibility-buffer branch (``use_pallas_raster=False``, and the
+  default on the CPU or with tiles other than 8x128; frame.py:1055-1064,
+  1159-1166, 1457-1463, 1470-1600): per pass a setup, materialised bins
+  capped at ``max_tris_per_tile``, the visibility raster (kernel 6 in
+  XLA-raster order) and interpolate_gbuffer; the opaque shade dense, the
+  transmissive raster seeded with the opaque depth, the transmission
+  shade over a compacted block worklist (or dense), through the tensor
+  shading path unless ``pallas_shade`` asks for the kernels.
+
+Every other branch raises NotImplementedError naming its ROADMAP item:
+the port never takes a silent detour.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from transmission_renderer_tpu_torch.ops.cull import (
 from transmission_renderer_tpu_torch.ops.mipchain import build_pyramid
 from transmission_renderer_tpu_torch.ops.raster import (
     bin_triangles,
+    bin_triangles_materialized,
     setup_triangles,
     tile_image,
 )
@@ -58,6 +68,7 @@ from transmission_renderer_tpu_torch.ops.raster_gbuf import (
     rasterize_gbuffer_pallas,
     rasterize_gbuffer_tiles,
 )
+from transmission_renderer_tpu_torch.ops.raster_vis import gather_bin_payload, rasterize
 from transmission_renderer_tpu_torch.pbr.clustering import (
     assign_lights_to_clusters,
     cluster_coefficients,
@@ -68,20 +79,23 @@ from transmission_renderer_tpu_torch.pbr.tonemap import (
     bake_lottes_params,
     lottes_tonemap_planes,
 )
-from transmission_renderer_tpu_torch.render.gbuffer import GBuffer
+from transmission_renderer_tpu_torch.render.gbuffer import GBuffer, interpolate_gbuffer
 from transmission_renderer_tpu_torch.render.raytrace import shadow_factors
 from transmission_renderer_tpu_torch.render.shading import (
     ShadeContext,
     build_material_matrix,
     cluster_light_mask,
     shade_opaque,
+    shade_transmission,
     shade_transmission_flat,
 )
 from transmission_renderer_tpu_torch.render.sparse import (
     BLOCK,
     BlockWork,
     block_gather,
+    block_origins,
     block_scatter,
+    compact_blocks,
     num_blocks,
     pixel_coords,
 )
@@ -401,29 +415,77 @@ def _up2(a: torch.Tensor, axis: int) -> torch.Tensor:
     return pair.reshape(a.shape[:axis] + (2 * n,) + a.shape[axis + 1 :])
 
 
-def _check_branch(config: RenderConfig, flags: SceneFlags) -> None:
+def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool,
+                  use_rt: bool) -> None:
     """Refuse every branch of the reference frame this port lacks."""
     def refuse(what, item):
         raise NotImplementedError(f"{what}: ROADMAP queue 1, {item}")
 
-    if flags.has_alpha_clip:
-        refuse("alpha-clip depth peeling", "other frame variants")
     if config.debug_clusters:
-        refuse("--debug-clusters", "other frame variants")
-    if config.use_pallas_raster is False or (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
-        refuse("the pure raster path (use_pallas_raster=False or non-8x128 "
-               "tiles)", "other frame variants")
-    if config.pallas_shade is False:
-        refuse("the XLA shading path (pallas_shade=False)", "other frame variants")
-    if config.width % BLOCK:
-        refuse("a width that is not a multiple of 128", "other frame variants")
+        refuse("--debug-clusters", "debug views")
     if config.opaque_block_cap_frac is not None:
         refuse("the block-sparse opaque shade", "other frame variants")
     if config.half_res_refraction or config.quad_material_taps or config.bf16_light_math:
         refuse("the quality flags", "other frame variants")
+    if not use_pallas:
+        if flags.has_alpha_clip:
+            refuse("alpha clip in the visibility raster (alpha_coverage_fn)",
+                   "visibility-buffer variants")
+        if use_rt:
+            refuse("ray-traced shadows on the visibility-buffer branch",
+                   "visibility-buffer variants")
+        return
+    if flags.has_alpha_clip:
+        refuse("alpha-clip depth peeling", "other frame variants")
+    if (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
+        refuse("the G-buffer raster with tiles other than 8x128", "other frame variants")
+    if config.width % BLOCK:
+        refuse("a width that is not a multiple of 128 on the G-buffer kernel "
+               "branch", "other frame variants")
     if config.pallas_pair_cap_frac is not None:
         refuse("pair-stream compaction (measured negative in the reference)",
                "leave out of the port")
+
+
+def _gather_gbuffer(wk: BlockWork, g: GBuffer) -> GBuffer:
+    """Every G-buffer channel's active blocks -> a flat worklist."""
+    return GBuffer(*(block_gather(wk, a) for a in g))
+
+
+def _merge_blocks(wk: BlockWork, valid: torch.Tensor, hdr: torch.Tensor,
+                  planes: tuple) -> tuple:
+    """Write a worklist's shaded pixels [M, 3] over the HDR planes where
+    valid (the reference's blend-disabled transmission pipeline)."""
+    return tuple(
+        block_scatter(wk, torch.where(valid, hdr[:, c], block_gather(wk, hp)), hp)
+        for c, hp in enumerate(planes)
+    )
+
+
+def _block_coords(wk: BlockWork, w: int):
+    """The shade kernel's block origins of a worklist's blocks."""
+    return block_origins(torch.clamp(wk.block_ids, max=wk.n_blocks - 1), w)
+
+
+def _visibility_pass(clip, dl: DrawList, mask, tri_scale, world_pos, world_nrm, uvs,
+                     config: RenderConfig, raster_pass: str, init_depth=None):
+    """One raster pass of the visibility-buffer branch (frame.py:1055-1064
+    with interpolate_gbuffer): setup over the pass's triangles,
+    materialised binning, kernel 6 in XLA-raster order seeded with
+    ``init_depth``, then the G-buffer -> (GBuffer [H, W], TileBins)."""
+    w, h, tw, th = config.width, config.height, config.tile_w, config.tile_h
+    with pass_scope("binning"):
+        setup = setup_triangles(clip, dl.tri_vtx, mask, w, h, tw, th)
+        bins = bin_triangles_materialized(
+            setup, config.tiles_x, config.tiles_y, config.max_tiles_per_tri,
+            config.max_tris_per_tile, config.max_big_tris)
+    with pass_scope("payload"):
+        payload = gather_bin_payload(setup, bins)
+    with pass_scope(raster_pass):
+        vis = rasterize(setup, bins, w, h, tw, th, init_depth=init_depth, payload=payload)
+        g = interpolate_gbuffer(vis, setup, dl.tri_vtx, dl.tri_material, tri_scale,
+                                world_pos, world_nrm, uvs, w, h)
+    return g, bins
 
 
 def render_frame(
@@ -442,15 +504,26 @@ def render_frame(
     scene's device; with ``return_diagnostics`` also FrameDiagnostics
     (check ``overflowed()``). Ray-traced shadows are on when
     ``config.ray_traced_shadows`` and a ``bvh``
-    (SceneBuilder.build_rt_bvh) is given."""
+    (SceneBuilder.build_rt_bvh) is given.
+
+    ``config.use_pallas_raster`` None takes the G-buffer kernel branch on
+    the card with 8x128 tiles and the visibility-buffer branch otherwise
+    (the reference's choice, with the tensors' device in place of its
+    backend); ``config.pallas_shade`` None shades through the kernels on
+    the kernel branch and through tensors on the other."""
     f32_matmuls()
-    _check_branch(config, flags)
     dev = scene.positions.device
     w, h = config.width, config.height
     tiles_x, tiles_y = config.tiles_x, config.tiles_y
     n_tiles = tiles_x * tiles_y
+    use_pallas = config.use_pallas_raster
+    if use_pallas is None:
+        use_pallas = dev.type != "cpu" and (config.tile_w, config.tile_h) == (TILE_W, TILE_H)
+    use_rt = config.ray_traced_shadows and bvh is not None
+    _check_branch(config, flags, use_pallas, use_rt)
     if ggx_lut is None:
         ggx_lut = _default_lut(config.ggx_lut_size, dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
 
     # ---- 1. vertex transform + frustum culling ---------------------------
     with pass_scope("geometry"):
@@ -458,47 +531,54 @@ def render_frame(
             scene, dl, params.proj_view)
         visible = cull_instances(scene, params.view, params.frustum_x_xz,
                                  params.frustum_y_yz, config.z_near)
-        use_rt = config.ray_traced_shadows and bvh is not None
         if use_rt:
             # per-frame refit, the TLAS UPDATE analogue
             # (src/acceleration_structures.rs:192-267)
             bvh = refit_bvh(bvh, dl.tri_vtx, world_pos)
-    mask = bucket_triangle_masks(
-        dl.tri_inst, dl.tri_bucket, visible,
-        (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP, BUCKET_TRANSMISSION,
-         BUCKET_TRANSMISSION_ALPHA_CLIP) if flags.has_transmission
-        else (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP),
-    )
-    # draw classes: 0 opaque, 1 transmission (no clip classes here)
-    tri_class = ((dl.tri_bucket == BUCKET_TRANSMISSION)
-                 | (dl.tri_bucket == BUCKET_TRANSMISSION_ALPHA_CLIP)).to(torch.int32)
-    num_classes = 2
-
-    # ---- 2. setup + class-split binning, payload, opaque raster ---------
-    with pass_scope("binning"):
-        setup = setup_triangles(clip, dl.tri_vtx, mask, w, h, config.tile_w,
-                                config.tile_h)
-        bins = bin_triangles(
-            setup, tiles_x, tiles_y, config.pallas_tiles_per_tri, tri_class,
-            num_classes, config.pallas_tiers,
-        )
-        tier_overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        for demand, slots in zip(bins.tier_demands, bins.tier_slots):
-            tier_overflow = torch.maximum(tier_overflow, demand - slots)
-    with pass_scope("payload"):
-        records = pack_gbuf_payload(setup, dl.tri_vtx, dl.tri_material,
-                                    tri_scale, world_pos, world_nrm, uvs,
-                                    tri_class)
-        gpayload = gather_gbuf_payload(records, bins)
 
     def sampled(slots):  # slot 4 (occlusion) is loaded, never sampled
         return any(s for i, s in enumerate(slots) if i != 4)
 
-    with pass_scope("raster_opaque"):
-        g_o = rasterize_gbuffer_pallas(
-            records, bins, w, h, pass_class=0, payload=gpayload,
-            pos_derivs=flags.tex_slots[2], uv_channels=sampled(flags.tex_slots),
+    # ---- 2. opaque raster -------------------------------------------------
+    if use_pallas:
+        # setup + class-split binning over every drawn bucket, one payload
+        # (frame.py:1073-1158); draw classes 0 opaque, 1 transmission
+        mask = bucket_triangle_masks(
+            dl.tri_inst, dl.tri_bucket, visible,
+            (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP, BUCKET_TRANSMISSION,
+             BUCKET_TRANSMISSION_ALPHA_CLIP) if flags.has_transmission
+            else (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP),
         )
+        tri_class = ((dl.tri_bucket == BUCKET_TRANSMISSION)
+                     | (dl.tri_bucket == BUCKET_TRANSMISSION_ALPHA_CLIP)).to(torch.int32)
+        num_classes = 2
+        with pass_scope("binning"):
+            setup = setup_triangles(clip, dl.tri_vtx, mask, w, h, config.tile_w,
+                                    config.tile_h)
+            bins = bin_triangles(
+                setup, tiles_x, tiles_y, config.pallas_tiles_per_tri, tri_class,
+                num_classes, config.pallas_tiers,
+            )
+            tier_overflow = zero
+            for demand, slots in zip(bins.tier_demands, bins.tier_slots):
+                tier_overflow = torch.maximum(tier_overflow, demand - slots)
+        with pass_scope("payload"):
+            records = pack_gbuf_payload(setup, dl.tri_vtx, dl.tri_material,
+                                        tri_scale, world_pos, world_nrm, uvs,
+                                        tri_class)
+            gpayload = gather_gbuf_payload(records, bins)
+        with pass_scope("raster_opaque"):
+            g_o = rasterize_gbuffer_pallas(
+                records, bins, w, h, pass_class=0, payload=gpayload,
+                pos_derivs=flags.tex_slots[2], uv_channels=sampled(flags.tex_slots),
+            )
+    else:
+        # the visibility-buffer branch (frame.py:1159-1166): a setup and
+        # materialised bins per pass, kernel 6, interpolate_gbuffer
+        mask_o = bucket_triangle_masks(dl.tri_inst, dl.tri_bucket, visible,
+                                       (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP))
+        g_o, bins_o = _visibility_pass(clip, dl, mask_o, tri_scale, world_pos,
+                                       world_nrm, uvs, config, "raster_opaque")
 
     # ---- 3. clustered lighting --------------------------------------------
     coeffs, aabb_min, aabb_max = _static_cluster_data(config)
@@ -526,6 +606,7 @@ def render_frame(
         ggx_lut=ggx_lut,
         tex_slots=flags.tex_slots,
         mat_matrix=build_material_matrix(scene, flags.tex_slots, flags.slot_bundles),
+        pallas_shade=use_pallas if config.pallas_shade is None else config.pallas_shade,
     )
 
     # ---- 4. opaque shadow rays + shade (dense) ------------------------------
@@ -560,15 +641,21 @@ def render_frame(
         hdr_planes = shade_opaque(scene, g_o, ctx)
 
     nb = num_blocks(h, w)
-    transmission_blocks = torch.zeros((), dtype=torch.int32, device=dev)
-    transmission_tiles = torch.zeros((), dtype=torch.int32, device=dev)
+    transmission_blocks = transmission_tiles = zero
     cap_t = cap_rt = 0
     if flags.has_transmission:
         # ---- 5. opaque mip pyramid over the static level set -------------
         level_set = refraction_level_set(flags, w, mip_levels_for_size(w, h))
         with pass_scope("mip_pyramid"):
             pyramid = build_pyramid(hdr_planes, level_set=level_set)
+        ctx_t = ctx._replace(
+            sun_shadow_factor=None, light_shadow_factors=None,
+            tex_slots=flags.tex_slots_transmission,
+            mat_matrix=build_material_matrix(
+                scene, flags.tex_slots_transmission, flags.slot_bundles),
+        )
 
+    if flags.has_transmission and use_pallas:
         # ---- 6-7. fused sparse transmissive raster -> sparse shade ---------
         cap_rt = _tile_cap(config.transmission_tile_cap_frac, n_tiles,
                            config.sparse_raster_tile_floor)
@@ -601,19 +688,12 @@ def render_frame(
         bids = torch.where(ok_b, prow * bpr + (ids_t % tiles_x)[:, None], nb).reshape(-1)
         wk_t = BlockWork(block_ids=bids, count=t_count * TILE_H, n_blocks=nb,
                          cap_b=cap_rt * TILE_H, shape=(h, w))
-        ctx_t = ctx._replace(
-            sun_shadow_factor=None, light_shadow_factors=None,
-            tex_slots=flags.tex_slots_transmission,
-            mat_matrix=build_material_matrix(
-                scene, flags.tex_slots_transmission, flags.slot_bundles),
-        )
         with pass_scope("shade_transmission"):
             transmission_blocks = wk_t.count
             cap_t = wk_t.cap_b
-            bid_t = torch.clamp(wk_t.block_ids, max=nb - 1)
+            px_t, py_t = pixel_coords(wk_t)
             ctx_tf = ctx_t
             if use_rt:
-                px_t, py_t = pixel_coords(wk_t)
                 with pass_scope("shadow_rays_transmission"):
                     # every 1024 worklist lanes are one 8x128 raster tile
                     sun_f_t, light_f_t = shadow_factors(
@@ -623,15 +703,35 @@ def render_frame(
                     )
                 ctx_tf = ctx_t._replace(sun_shadow_factor=sun_f_t,
                                         light_shadow_factors=light_f_t)
-            hdr_t = shade_transmission_flat(
-                scene, g_tf, ctx_tf, pyramid, level_set,
-                bid_t // bpr, (bid_t % bpr) * 128,
-            )
-            hdr_planes = tuple(
-                block_scatter(wk_t, torch.where(
-                    g_tf.valid, hdr_t[:, c], block_gather(wk_t, hp)), hp)
-                for c, hp in enumerate(hdr_planes)
-            )
+            hdr_t = shade_transmission_flat(scene, g_tf, ctx_tf, pyramid, level_set,
+                                            px_t, py_t, *_block_coords(wk_t, w))
+            hdr_planes = _merge_blocks(wk_t, g_tf.valid, hdr_t, hdr_planes)
+    elif flags.has_transmission:
+        # ---- 6-7. transmissive raster seeded with the opaque depth, then
+        # the compacted (or dense) shade (frame.py:1457-1463, 1470-1600) ----
+        mask_t = bucket_triangle_masks(
+            dl.tri_inst, dl.tri_bucket, visible,
+            (BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP))
+        g_t, bins_t = _visibility_pass(clip, dl, mask_t, tri_scale, world_pos, world_nrm,
+                                       uvs, config, "raster_transmission",
+                                       init_depth=g_o.depth)
+        # a fraction of the blocks with a 256-block floor: at small frames
+        # one 128-px block spans several rows, so coverage quantises up
+        if config.transmission_block_cap_frac is not None:
+            cap_t = min(max(int(np.ceil(nb * config.transmission_block_cap_frac)), 256), nb)
+        with pass_scope("shade_transmission"):
+            if cap_t:
+                wk_t = compact_blocks(g_t.valid, cap_t)
+                transmission_blocks = wk_t.count
+                g_tf = _gather_gbuffer(wk_t, g_t)
+                px_t, py_t = pixel_coords(wk_t)
+                hdr_t = shade_transmission_flat(scene, g_tf, ctx_t, pyramid, level_set,
+                                                px_t, py_t, *_block_coords(wk_t, w))
+                hdr_planes = _merge_blocks(wk_t, g_tf.valid, hdr_t, hdr_planes)
+            else:
+                hdr_t = shade_transmission(scene, g_t, ctx_t, pyramid, level_set)
+                hdr_planes = tuple(torch.where(g_t.valid, hdr_t[..., c], hp)
+                                   for c, hp in enumerate(hdr_planes))
 
     # ---- 8. tonemap ----------------------------------------------------------
     with pass_scope("tonemap"):
@@ -640,25 +740,32 @@ def render_frame(
     if return_hdr:
         out += (torch.stack(hdr_planes, -1),)
     if return_diagnostics:
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        if use_pallas:
+            diag = dict(max_bin_count=zero, big_tri_count=bins.big_tri_count,
+                        big_tri_capacity=config.pallas_tiers[-1][1],
+                        mid_tri_count=bins.mid_tri_count,
+                        mid_tri_capacity=config.pallas_max_mid_tris,
+                        tier_overflow=tier_overflow)
+        else:
+            passes = (bins_o, bins_t) if flags.has_transmission else (bins_o,)
+            diag = dict(
+                max_bin_count=torch.stack([b.max_bin_count for b in passes]).max(),
+                big_tri_count=torch.stack([b.big_tri_count for b in passes]).max(),
+                big_tri_capacity=config.max_big_tris, mid_tri_count=zero,
+                mid_tri_capacity=0, tier_overflow=zero)
         out += (FrameDiagnostics(
-            max_bin_count=zero,
             bin_capacity=config.max_tris_per_tile,
-            big_tri_count=bins.big_tri_count,
-            big_tri_capacity=config.pallas_tiers[-1][1],
             opaque_blocks=zero,
             opaque_block_capacity=0,
             transmission_blocks=transmission_blocks,
             transmission_block_capacity=cap_t,
             clip_unresolved=zero,
-            mid_tri_count=bins.mid_tri_count,
-            mid_tri_capacity=config.pallas_max_mid_tris,
             transmission_tiles=transmission_tiles,
             transmission_tile_capacity=cap_rt,
             clip_tiles=zero,
             clip_tile_capacity=0,
-            tier_overflow=tier_overflow,
             pair_demand=zero,
             pair_capacity=0,
+            **diag,
         ),)
     return out[0] if len(out) == 1 else out

@@ -38,6 +38,10 @@ import torch
 
 from transmission_renderer_tpu_torch import kernels
 from transmission_renderer_tpu_torch.pbr.brdf import F32_EPSILON, _FRAC_1_PI
+from transmission_renderer_tpu_torch.pbr.clustering import (
+    ClusterCoefficients,
+    get_depth_slice,
+)
 
 # transmission outputs: d(3) s(3) t(3) uv(2) lod raylen nov rough tf
 # att_dist att_colour(3) diffuse(3) f0(3) f90(3) emission(3)
@@ -197,14 +201,9 @@ def pixel_clusters(spec: ShadeSpec, depth: torch.Tensor, px: torch.Tensor,
                    py: torch.Tensor) -> torch.Tensor:
     """Cluster id (int32) of each pixel (shader/src/lib.rs:205-215) from
     its depth and float32 pixel coordinates, as the kernel computes it."""
-    zn, zf = spec.z_near, spec.z_far
-    depth_range = 2.0 * (1.0 - depth) - 1.0
-    lin = torch.tensor(np.float32(2.0 * zn * zf), device=depth.device) / (
-        (zf + zn) - depth_range * (zf - zn))
-    slice_f = (torch.log2(lin) * _f32(spec.coeff_scale)
-               + _f32(spec.coeff_bias))
-    zsl = torch.clamp(torch.clamp(slice_f, min=0.0).to(torch.int32),
-                      max=spec.n_slices - 1)
+    coeffs = ClusterCoefficients(spec.z_near, spec.z_far, spec.coeff_scale,
+                                 spec.coeff_bias, spec.n_slices)
+    zsl = torch.clamp(get_depth_slice(coeffs, depth), max=spec.n_slices - 1)
     cx = torch.clamp(((px + 0.5) * spec.rcp_csx).to(torch.int32), max=spec.ncx - 1)
     cy = torch.clamp(((py + 0.5) * spec.rcp_csy).to(torch.int32), max=spec.ncy - 1)
     return zsl * (spec.ncx * spec.ncy) + cy * spec.ncx + cx

@@ -1,18 +1,24 @@
-"""Deferred shading passes on the fused-kernel path.
+"""Deferred shading passes — the fragment-shader equivalents.
 
-Counterpart of ``transmission_renderer_tpu/render/shading.py``, the main
-path's subset: ShadeContext, _mip_lod, build_material_matrix,
-_meta_rows_from, used_meta_cols, bundle_tap_samples, shade_opaque /
-shade_opaque_flat down the kernel path (shading.py:840-893),
-_shade_transmission_kernel_path with its combine tail
-(shading.py:952-1043), and the ray-traced shadows' cluster gate
-(_cluster_index, _cluster_rows, cluster_light_mask, shading.py:480-542).
+Counterpart of ``transmission_renderer_tpu/render/shading.py``:
+ShadeContext, build_material_matrix, _meta_rows_from, used_meta_cols,
+bundle_tap_samples, the ray-traced shadows' cluster gate (_cluster_index,
+_cluster_rows, cluster_light_mask), and both bodies of shade_opaque_flat,
+shade_opaque, shade_transmission_flat and shade_transmission:
 
-The reference's XLA shading path (evaluate_pixel_material,
-evaluate_lights_common) is not ported: the fused shade kernel's plain
-version (render/shade_kernel.py::fused_shade_plain) stands in for it.
-A configuration the reference would send down that path raises
-NotImplementedError here.
+- the kernel path (``ctx.pallas_shade``): the material taps (kernel 2),
+  the fused shade (kernel 3), the pyramid + GGX-LUT fetch (kernel 4) and
+  the combine tail (shading.py:840-893, 952-1043). Where it cannot run it
+  raises NotImplementedError; it never falls back to the tensor path.
+- the tensor path (the reference's XLA formulation, shading.py:894-919,
+  1067-1118): _evaluate_pixel_material with _normal_mapped,
+  _light_matrix and _evaluate_lights_common over pbr/brdf.py, taken when
+  ``ctx.pallas_shade`` is False, as the reference decides it
+  (frame.py:1215-1217). The reference's one-hot matmul row fetch
+  (onehot_rows) is its TPU form of a row gather; here it is the gather.
+
+Cluster x/y divide by the cluster size as the reference's compiled frame
+does (a multiply by the float32 reciprocal), on both paths.
 """
 
 from __future__ import annotations
@@ -21,24 +27,41 @@ from typing import NamedTuple
 
 import torch
 
-from transmission_renderer_tpu_torch.ops.mipchain import MipPyramid
+from transmission_renderer_tpu_torch.ops.mipchain import MipPyramid, sample_pyramid_lod
 from transmission_renderer_tpu_torch.ops.tap_finish import (
     sample_bundle_planes,
     transmission_fetch_planes,
 )
-from transmission_renderer_tpu_torch.ops.texture import WRAP_REPEAT, atlas_classes
-from transmission_renderer_tpu_torch.pbr.brdf import apply_volume_attenuation
+from transmission_renderer_tpu_torch.ops.texture import (
+    WRAP_REPEAT,
+    atlas_classes,
+    sample_bundle_rows,
+    sample_lut_2ch,
+    select_layer,
+)
+from transmission_renderer_tpu_torch.pbr.brdf import (
+    MaterialParams,
+    _sum3,
+    apply_volume_attenuation,
+    basic_brdf,
+    ibl_volume_refraction,
+    light_direction_and_attenuation,
+    material_invariants,
+    transmission_btdf,
+)
 from transmission_renderer_tpu_torch.pbr.clustering import ClusterCoefficients
-from transmission_renderer_tpu_torch.pbr.lights import Lights
+from transmission_renderer_tpu_torch.pbr.lights import Lights, spotlight_factor
 from transmission_renderer_tpu_torch.render.gbuffer import GBuffer
 from transmission_renderer_tpu_torch.render.shade_kernel import (
+    _light_matrix,
     pallas_shade_supported,
     pixel_clusters,
     shade_opaque_pallas_planes,
     shade_spec,
     shade_transmission_pallas_pre,
 )
-from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, MAX_MIPS
+from transmission_renderer_tpu_torch.render.sparse import block_origins
+from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, LAYER_SHIFT, MAX_MIPS
 from transmission_renderer_tpu_torch.scene.types import Scene
 from transmission_renderer_tpu_torch.utils.profiling import pass_scope
 
@@ -68,6 +91,8 @@ class ShadeContext(NamedTuple):
     # shadowed; the sun's [...] and each light's [..., L]
     sun_shadow_factor: torch.Tensor | None = None
     light_shadow_factors: torch.Tensor | None = None
+    # the kernel path (kernels 2-4); False: the tensor path
+    pallas_shade: bool = False
 
 
 def _cluster_index(ctx: ShadeContext, depth, px, py) -> torch.Tensor:
@@ -235,22 +260,241 @@ def _require_kernel_path(ctx: ShadeContext) -> None:
         ctx, int(ctx.mat_matrix.table.shape[0]), ctx.framebuffer_size[0]
     ):
         raise NotImplementedError(
-            "this configuration takes the reference's XLA shading path "
-            "(evaluate_pixel_material / evaluate_lights_common): ROADMAP "
-            "queue 1, other frame variants"
+            "the fused shade kernel does not take this configuration (the "
+            "reference would shade it through its XLA path, which the port "
+            "takes only with pallas_shade False): ROADMAP queue 1, other "
+            "frame variants"
         )
 
 
-def shade_opaque_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
-                      block_py: torch.Tensor, block_px0: torch.Tensor) -> tuple:
-    """The opaque PBR fragment shader (shader/src/lib.rs:164-249) over a
-    flat [M] worklist of single-row 128-px blocks -> (r, g, b) planes."""
-    _require_kernel_path(ctx)
-    with pass_scope("material_taps"):
-        samples = bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
-    return shade_opaque_pallas_planes(
-        scene, g, ctx, block_py, block_px0, samples, ctx.tex_slots
+def _require_block_coords(block_py) -> None:
+    if block_py is None:
+        raise NotImplementedError(
+            "the shade kernel needs single-row 128-px blocks: a width that "
+            "is not a multiple of 128 takes the tensor path (pallas_shade "
+            "False): ROADMAP queue 1, other frame variants"
+        )
+
+
+def _require_tensor_path(ctx: ShadeContext) -> None:
+    for flag, item in ((ctx.debug_clusters, "--debug-clusters"),
+                       (ctx.quad_taps, "--quad-taps"), (ctx.bf16_lights, "--bf16-lights")):
+        if flag:
+            raise NotImplementedError(f"{item} on the tensor shading path: ROADMAP "
+                                      "queue 1, other frame variants")
+
+
+# ---------------------------------------------------------------------------
+# the tensor path (the reference's XLA shading)
+# ---------------------------------------------------------------------------
+
+def _normalize_safe(v: torch.Tensor) -> torch.Tensor:
+    """v / max(|v|, 1e-12)."""
+    return v / torch.clamp(torch.sqrt(_sum3(v * v)), min=1e-12)[..., None]
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+class PixelMaterial(NamedTuple):
+    params: MaterialParams
+    diffuse_alpha: torch.Tensor
+    emission: torch.Tensor
+    transmission_factor: torch.Tensor
+    thickness: torch.Tensor
+    attenuation_distance: torch.Tensor
+    attenuation_colour: torch.Tensor
+    normal: torch.Tensor  # shading normal after normal mapping
+
+
+def _evaluate_pixel_material(scene: Scene, g: GBuffer, tex_slots: tuple = (True,) * 9,
+                             mat_matrix: MaterialMatrix | None = None) -> PixelMaterial:
+    """Per-pixel material on a flat [M] G-buffer: the factor and texture
+    fetches and the normal map of get_material_params / get_emission /
+    calculate_normal (shader/src/lighting.rs:222-313) and the transmission
+    and thickness taps of fragment_transmission (shader/src/lib.rs:120-124).
+    ``tex_slots`` skips the taps of slots no material uses; slots sharing
+    a meta block (one bundle image) share one tap."""
+    mm = mat_matrix if mat_matrix is not None else build_material_matrix(scene, tex_slots)
+    (use_diffuse, use_mr, use_normal, use_emissive, _use_occlusion,
+     use_transmission, use_thickness, use_specular, use_specular_colour) = tex_slots
+    mrow = mm.table[g.material_id.long()]
+    classes = atlas_classes(scene.atlas_meta)
+    taps: dict = {}
+
+    def tex4(slot_idx):
+        tid = mrow[..., 21 + slot_idx].to(torch.int32)
+        col = mm.meta_col[_MAT_SLOTS[slot_idx]]
+        if col not in taps:
+            rows = _meta_rows_from(mrow, col)
+            lod = _mip_lod(g.duv_dx, g.duv_dy, rows[..., 2], rows[..., 3])
+            taps[col] = sample_bundle_rows(scene.atlas_texels, rows, g.uv, lod,
+                                           WRAP_REPEAT, classes)
+        bundle = taps[col]
+        if max(classes) == 1:
+            return tid, bundle[..., 0, :]
+        return tid, select_layer(bundle, torch.clamp(tid, min=0) >> LAYER_SHIFT)
+
+    def hit(tid, new, old):
+        return torch.where((tid >= 0)[..., None] if old.dim() > tid.dim() else tid >= 0,
+                           new, old)
+
+    diffuse = mrow[..., 2:6]
+    if use_diffuse:
+        tid, smp = tex4(0)
+        diffuse = hit(tid, diffuse * smp, diffuse)
+    # metallic / roughness read B / G (shader/src/lighting.rs:269-277)
+    metallic, roughness = mrow[..., 0], mrow[..., 1]
+    if use_mr:
+        tid, smp = tex4(1)
+        metallic = hit(tid, metallic * smp[..., 2], metallic)
+        roughness = hit(tid, roughness * smp[..., 1], roughness)
+    specular_colour = mrow[..., 17:20]
+    if use_specular_colour:
+        tid, smp = tex4(7)
+        specular_colour = hit(tid, specular_colour * smp[..., :3], specular_colour)
+    specular_factor = mrow[..., 16]
+    if use_specular:
+        tid, smp = tex4(6)
+        specular_factor = hit(tid, specular_factor * smp[..., 3], specular_factor)
+    emission = mrow[..., 6:9]
+    if use_emissive:
+        tid, smp = tex4(3)
+        emission = hit(tid, emission * smp[..., :3], emission)
+    transmission_factor = mrow[..., 10]
+    if use_transmission:
+        tid, smp = tex4(4)
+        transmission_factor = hit(tid, transmission_factor * smp[..., 0], transmission_factor)
+    thickness = mrow[..., 11]
+    if use_thickness:
+        tid, smp = tex4(5)
+        thickness = hit(tid, thickness * smp[..., 1], thickness)
+    normal = _normalize_safe(g.normal)
+    if use_normal:
+        normal = _normal_mapped(g, normal, tex4)
+    params = MaterialParams(
+        diffuse_colour=diffuse[..., :3], metallic=metallic, perceptual_roughness=roughness,
+        index_of_refraction=mrow[..., 9], specular_colour=specular_colour,
+        specular_factor=specular_factor,
     )
+    return PixelMaterial(
+        params=params, diffuse_alpha=diffuse[..., 3], emission=emission,
+        transmission_factor=transmission_factor, thickness=thickness,
+        attenuation_distance=torch.where(mrow[..., 20] > 0.5, torch.inf, mrow[..., 12]),
+        attenuation_colour=mrow[..., 13:16], normal=normal,
+    )
+
+
+def _normal_mapped(g: GBuffer, normal: torch.Tensor, tex4) -> torch.Tensor:
+    """Normal mapping through the screen-space cotangent frame
+    (shader/src/lighting.rs:243-259) from the analytic derivatives."""
+    tid, smp = tex4(2)
+    map_normal = smp[..., :3] * (255.0 / 127.0) - (128.0 / 127.0)
+    dp2perp = _cross(g.dpos_dy, normal)
+    dp1perp = _cross(normal, g.dpos_dx)
+    t = dp2perp * g.duv_dx[..., 0:1] + dp1perp * g.duv_dy[..., 0:1]
+    bt = dp2perp * g.duv_dx[..., 1:2] + dp1perp * g.duv_dy[..., 1:2]
+    invmax = 1.0 / torch.sqrt(torch.clamp(torch.maximum(_sum3(t * t), _sum3(bt * bt)),
+                                          min=1e-20))
+    mapped = (t * invmax[..., None] * map_normal[..., 0:1]
+              + bt * invmax[..., None] * map_normal[..., 1:2]
+              + normal * map_normal[..., 2:3])
+    return torch.where((tid >= 0)[..., None], _normalize_safe(mapped), normal)
+
+
+def _evaluate_lights_common(ctx: ShadeContext, material: MaterialParams, view, position,
+                            normal, depth, px, py, with_transmission: bool):
+    """The clustered light loop of both fragment shaders (evaluate_lights
+    / evaluate_lights_transmission, shader/src/lighting.rs:13-95,
+    145-220) on flat [M] pixels -> (BrdfResult, transmission [M, 3] or
+    None, cluster ids, light counts). Slot s reads the cluster's s-th
+    light; slots past the count add exact zeros."""
+    cluster, rows, counts, max_slots = _cluster_rows(ctx, depth, px, py)
+    sun_factor = (ctx.sun_shadow_factor if ctx.sun_shadow_factor is not None
+                  else torch.ones_like(depth))
+    if not with_transmission and ctx.sun_shadow_factor is not None:
+        sun_factor = torch.clamp(sun_factor, min=0.1)  # lighting.rs:166
+    inv = material_invariants(material)
+    sun_intensity = ctx.sun_intensity * sun_factor[..., None]
+    sun_dir = ctx.sun_dir.expand(position.shape)
+    result = basic_brdf(normal, sun_dir, sun_intensity, view, material, inv=inv)
+    transmission = None
+    if with_transmission:
+        transmission = sun_intensity * transmission_btdf(material, normal, view, sun_dir,
+                                                         inv=inv)
+    lmat = _light_matrix(ctx.lights)
+    for slot in range(max_slots):
+        light_idx = rows[..., slot].long()
+        lrow = lmat[light_idx]  # [M, 12]
+        direction, _, attenuation = light_direction_and_attenuation(position, lrow[..., 0:3])
+        factor = torch.where(slot < counts, 1.0, 0.0)
+        if ctx.light_shadow_factors is not None:
+            factor = factor * torch.gather(ctx.light_shadow_factors, -1,
+                                           light_idx[..., None])[..., 0]
+        if not with_transmission:
+            # only evaluate_lights applies the spot factor (lighting.rs:201-203)
+            eps = torch.where(lrow[..., 10] == 0.0, 1.0, lrow[..., 10])
+            spot = spotlight_factor(direction, lrow[..., 6:9], lrow[..., 9], eps)
+            factor = factor * torch.where(lrow[..., 11] > 0.5, spot, 1.0)
+        radiance = lrow[..., 3:6] * factor[..., None] * attenuation[..., None]
+        result = result + basic_brdf(normal, direction, radiance, view, material, inv=inv)
+        if with_transmission:
+            transmission = transmission + radiance * transmission_btdf(
+                material, normal, view, direction, inv=inv)
+    return result, transmission, cluster, counts
+
+
+def _dense_coords(h: int, w: int, device) -> tuple:
+    """Flat int32 (px, py) of a dense [H, W] frame."""
+    px = torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w).reshape(-1)
+    py = torch.arange(h, dtype=torch.int32, device=device)[:, None].expand(h, w).reshape(-1)
+    return px, py
+
+
+def _flatten_ctx_factors(ctx: ShadeContext) -> ShadeContext:
+    """Flatten [H, W]-shaped shadow factors for the flat shaders."""
+    rep = {}
+    if ctx.sun_shadow_factor is not None and ctx.sun_shadow_factor.dim() == 2:
+        rep["sun_shadow_factor"] = ctx.sun_shadow_factor.reshape(-1)
+    if ctx.light_shadow_factors is not None and ctx.light_shadow_factors.dim() == 3:
+        f = ctx.light_shadow_factors
+        rep["light_shadow_factors"] = f.reshape(-1, f.shape[-1])
+    return ctx._replace(**rep) if rep else ctx
+
+
+def _view_dir(ctx: ShadeContext, g: GBuffer) -> torch.Tensor:
+    return _normalize_safe(ctx.view_position - g.position)
+
+
+# ---------------------------------------------------------------------------
+# the shaders
+# ---------------------------------------------------------------------------
+
+def shade_opaque_flat(scene: Scene, g: GBuffer, ctx: ShadeContext, px, py,
+                      block_py: torch.Tensor | None = None,
+                      block_px0: torch.Tensor | None = None) -> tuple:
+    """The opaque PBR fragment shader (shader/src/lib.rs:164-249) over a
+    flat [M] worklist -> (r, g, b) [M] planes, 0 on invalid pixels. The
+    kernel path needs ``block_py`` / ``block_px0`` (the framebuffer row
+    and first x of each single-row 128-px block)."""
+    if ctx.pallas_shade:
+        _require_block_coords(block_py)
+        _require_kernel_path(ctx)
+        with pass_scope("material_taps"):
+            samples = bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
+        return shade_opaque_pallas_planes(
+            scene, g, ctx, block_py, block_px0, samples, ctx.tex_slots
+        )
+    _require_tensor_path(ctx)
+    view = _view_dir(ctx, g)
+    pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix)
+    result, _, _, _ = _evaluate_lights_common(
+        ctx, pm.params, view, g.position, pm.normal, g.depth, px, py, False)
+    out = torch.where(g.valid[..., None], result.diffuse + result.specular + pm.emission, 0.0)
+    return tuple(out[:, c] for c in range(3))
 
 
 def flatten_gbuffer(g: GBuffer) -> GBuffer:
@@ -261,38 +505,18 @@ def flatten_gbuffer(g: GBuffer) -> GBuffer:
 def shade_opaque(scene: Scene, g: GBuffer, ctx: ShadeContext) -> tuple:
     """Dense [H, W] opaque shade -> (r, g, b) [H, W] planes."""
     h, w = g.depth.shape
-    if w % 128:
-        raise NotImplementedError(
-            "width not a multiple of 128 takes the reference's XLA shading "
-            "path: ROADMAP queue 1, other frame variants"
-        )
-    bpr = w // 128
-    bid = torch.arange((h * w) // 128, dtype=torch.int32, device=g.depth.device)
-    if ctx.sun_shadow_factor is not None:
-        ctx = ctx._replace(sun_shadow_factor=ctx.sun_shadow_factor.reshape(-1))
-    if ctx.light_shadow_factors is not None:
-        f = ctx.light_shadow_factors
-        ctx = ctx._replace(light_shadow_factors=f.reshape(-1, f.shape[-1]))
-    planes = shade_opaque_flat(
-        scene, flatten_gbuffer(g), ctx, bid // bpr, (bid % bpr) * 128
-    )
+    dev = g.depth.device
+    px, py = _dense_coords(h, w, dev)
+    block_py, block_px0 = block_origins(
+        torch.arange((h * w) // 128, dtype=torch.int32, device=dev), w)
+    planes = shade_opaque_flat(scene, flatten_gbuffer(g), _flatten_ctx_factors(ctx), px, py,
+                               block_py, block_px0)
     return tuple(p.reshape(h, w) for p in planes)
 
 
-def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
-                            pyramid: MipPyramid, level_set: tuple,
-                            block_py: torch.Tensor,
-                            block_px0: torch.Tensor) -> torch.Tensor:
-    """The transmission fragment shader (shader/src/lib.rs:37-162) over a
-    flat [M] worklist -> [M, 3] HDR (0 on invalid pixels): the fused
-    pre-shade (kernel 3), the pyramid + GGX-LUT fetch (kernel 4), then
-    the combine tail."""
-    _require_kernel_path(ctx)
-    if level_set is None:
-        raise NotImplementedError(
-            "per-pixel (textured) transmissive roughness needs the full "
-            "pyramid's dynamic-level fetch: ROADMAP queue 1, other frame variants"
-        )
+def _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py, block_px0):
+    """The fused pre-shade (kernel 3), the pyramid + GGX-LUT fetch
+    (kernel 4), then the combine tail (shading.py:952-1043)."""
     with pass_scope("material_taps"):
         samples = bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
     p = shade_transmission_pallas_pre(
@@ -323,3 +547,50 @@ def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
     diffuse = d + (real_transmission - d) * tf
     out = diffuse + v3("s_r", "s_g", "s_b") + v3("em_r", "em_g", "em_b")
     return torch.where(g.valid[..., None], out, 0.0)
+
+
+def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
+                            pyramid: MipPyramid, level_set: tuple, px, py,
+                            block_py: torch.Tensor | None = None,
+                            block_px0: torch.Tensor | None = None) -> torch.Tensor:
+    """The transmission fragment shader (shader/src/lib.rs:37-162) over a
+    flat [M] worklist -> [M, 3] HDR (0 on invalid pixels); the opaque
+    pyramid is fetched over its static ``level_set``."""
+    if level_set is None:
+        raise NotImplementedError(
+            "per-pixel (textured) transmissive roughness needs the full "
+            "pyramid's dynamic-level fetch: ROADMAP queue 1, other frame variants"
+        )
+    if ctx.pallas_shade:
+        _require_block_coords(block_py)
+        _require_kernel_path(ctx)
+        return _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py,
+                                         block_px0)
+    _require_tensor_path(ctx)
+    view = _view_dir(ctx, g)
+    pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix)
+    result, transmission, _, _ = _evaluate_lights_common(
+        ctx, pm.params, view, g.position, pm.normal, g.depth, px, py, True)
+    transmission = transmission + ibl_volume_refraction(
+        pm.params, ctx.framebuffer_size[0], pm.normal, view, ctx.proj_view, g.position,
+        pm.thickness, g.model_scale, pm.attenuation_distance, pm.attenuation_colour,
+        lambda uv, lod: sample_pyramid_lod(pyramid, uv, lod, level_set),
+        lambda nov, rough: sample_lut_2ch(ctx.ggx_lut, nov, rough),
+    )
+    tf = pm.transmission_factor[..., None]
+    diffuse = result.diffuse + (tf * transmission - result.diffuse) * tf
+    out = diffuse + result.specular + pm.emission
+    return torch.where(g.valid[..., None], out, 0.0)
+
+
+def shade_transmission(scene: Scene, g: GBuffer, ctx: ShadeContext,
+                       pyramid: MipPyramid, level_set: tuple) -> torch.Tensor:
+    """Dense [H, W] transmission shade -> [H, W, 3]."""
+    h, w = g.depth.shape
+    dev = g.depth.device
+    px, py = _dense_coords(h, w, dev)
+    block_py, block_px0 = block_origins(
+        torch.arange((h * w) // 128, dtype=torch.int32, device=dev), w)
+    out = shade_transmission_flat(scene, flatten_gbuffer(g), _flatten_ctx_factors(ctx),
+                                  pyramid, level_set, px, py, block_py, block_px0)
+    return out.reshape(h, w, 3)

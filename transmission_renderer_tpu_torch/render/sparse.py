@@ -1,7 +1,8 @@
 """Block-sparse pixel worklists of 128-pixel blocks.
 
 Counterpart of ``transmission_renderer_tpu/render/sparse.py`` (BLOCK,
-BlockWork, num_blocks, pixel_coords, block_gather, block_scatter): a
+BlockWork, num_blocks, compact_blocks, pixel_coords, block_gather,
+block_scatter; and block_origins): a
 static-capacity list of flat 128-px block ids over an [H, W] frame;
 empty slots hold ``n_blocks``, a zero pad row that gathers read and
 scatters drop.
@@ -30,6 +31,30 @@ class BlockWork(NamedTuple):
 
 def num_blocks(h: int, w: int) -> int:
     return (h * w + BLOCK - 1) // BLOCK
+
+
+def compact_blocks(mask: torch.Tensor, cap_b: int) -> BlockWork:
+    """[H, W] bool -> worklist of the blocks holding any True pixel, in
+    ascending order; blocks past ``cap_b`` are left out (``count`` keeps
+    the full number)."""
+    h, w = mask.shape
+    nb = num_blocks(h, w)
+    flat = torch.cat([mask.reshape(-1), mask.new_zeros(nb * BLOCK - h * w)])
+    active = flat.reshape(nb, BLOCK).any(dim=1)
+    pos = torch.cumsum(active.to(torch.int32), 0) - 1
+    tgt = torch.where(active & (pos < cap_b), pos, cap_b).long()
+    ids = torch.full((cap_b + 1,), nb, dtype=torch.int32, device=mask.device)
+    ids[tgt] = torch.arange(nb, dtype=torch.int32, device=mask.device)
+    return BlockWork(block_ids=ids[:cap_b], count=active.to(torch.int32).sum(),
+                     n_blocks=nb, cap_b=cap_b, shape=(h, w))
+
+
+def block_origins(block_ids: torch.Tensor, w: int) -> tuple:
+    """(row, first x) of each 128-px block, as the shade kernel takes
+    them; (None, None) when blocks are not single-row segments (w % 128)."""
+    if w % BLOCK:
+        return None, None
+    return block_ids // (w // BLOCK), (block_ids % (w // BLOCK)) * BLOCK
 
 
 def _padded_rows(wk: BlockWork, img: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,15 @@
 """Drive the PyTorch + CUDA port's flagship frames once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times
+
+The second form only builds the kernels, captures every kernel's calls
+on the widest frame that launches it (kernels 1-5 on phase 7's
+ray-traced frame, kernel 6 on phase 8's visibility-buffer frame) and
+prints one JSON line of their ms per frame: run beside another tree's
+package (a copy of this script in that tree's root), it times that
+tree's kernels on the same inputs, so two versions can be timed in turns
+in one call.
 
 Phases (any failure raises and exits non-zero; nothing falls back):
 
@@ -15,9 +24,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    4.8, the two point lights of bench.py.
 4. kernel parity: every kernel's inputs are captured from one frame and
    replayed through the kernel and its plain PyTorch version on the card:
-   raster tri/material equal, depth <= 1e-7, attributes atol 1e-4 /
-   rtol 1e-3; material tap <= 1e-6; shade <= 1e-5 on all but <= 0.05% of
-   the pixels; transmission fetch <= 1e-6.
+   the raster's channels equal bit for bit (tri, material, max abs error
+   0 on every float plane); material tap <= 1e-6; shade <= 1e-5 on all
+   but <= 0.05% of the pixels; transmission fetch <= 1e-6. Per raster
+   call it prints the tiles, the records, the mean run and the busiest
+   tile's run (what kernel 1's work list spreads over the card).
 5. frame: one frame with the launch counts reset first; it must launch
    raster 2, tap 1, shade 2, fetch 1 times, give a finite image in
    [0, 1], report no capacity overflow, and match the stored golden
@@ -26,11 +37,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    GOLDEN_DROPPED_TILES; the whole-frame RMSE is printed too).
 6. timing: 3 warm-up frames, then 20 frames timed with CUDA events
    (median ms/frame, fps), per-pass ms from the profiler ranges, and each
-   kernel's ms per frame beside its plain version's.
+   kernel's ms per frame (device, and the host's enqueue time) beside
+   its plain version's (kernel 1's replayed once).
 7. ray-traced shadows: the same scene and camera with
    RenderConfig(width=1920, height=1080, ray_traced_shadows=True) and the
-   scene's BVH. (a) the occlusion kernel's hit set equals its plain walk's
-   exactly on both of the frame's calls; (b) every other kernel, the shade
+   scene's BVH. (a) the occlusion kernel's hit set equals exactly, on
+   both of the frame's calls, its plain walk's over the kernel's own
+   table and over the packet table built apart from it from the frame's
+   triangles (the two walks count the same pops and triangle tests), and
+   from the plain walk's pop counts the mean pops per live ray and the
+   mean over the 32-ray warps (in the frame's ray order) that hold a live
+   ray of the warp's largest pop count, whose ratio bounds what
+   divergence costs one ray per thread; (b) every other kernel, the shade
    kernel now reading shadow factors, holds phase 4's tolerance on the
    frame's own inputs; (c) with the counts reset, the frame launches
    raster 2, tap 1, shade 2, fetch 1, bvh_occlusion 2; (d) its image is
@@ -40,7 +58,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    coloured light is shadowed (the Lottes curve scales by the max
    channel), so that is printed, not held; (e) median ms/frame over 10 frames
    after 2 warm-ups, per-pass ms, each kernel's ms per frame beside its
-   plain version's (the occlusion walk's plain version replayed once) and
+   plain version's (kernel 1's and the occlusion walk's replayed once) and
    its bound, the ray counts, and the occlusion kernel timed on the
    frame's rays in their swizzled order and in row-major pixel order (in
    turns; the hits must agree); (f) the half_res_shadow_rays frame
@@ -69,10 +87,14 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 The kernels JSON object reports every kernel on the widest path that
 launches it: kernels 1-5 on the ray-traced frame (phase 7), kernel 6 on
 the visibility-buffer frame (phase 8): launches, worst parity error over
-every frame checked, ms per frame of the kernel and of its plain version,
-and the least time the card could take (bound_ms, from the bytes and
-operations of the frame's own calls, see kernel_work) with what bounds
-it. library_ms is null: no single PyTorch call computes any of these
+every frame checked, ms per frame of the kernel (the card's time for
+the frame's calls, CUDA events queued behind a spin kernel so that they
+do not read the host's enqueue time, see device_ms; the host's time is
+printed beside it) and of its plain version, and the least time the card
+could take (bound_ms, from the bytes and operations of the frame's own
+calls, see kernel_work: the raster's depth test counted only where the
+record covers the pixel, the walk's triangle tests only up to a leaf's
+first hit and each up to where it leaves) with what bounds it. library_ms is null: no single PyTorch call computes any of these
 functions (PERF.md gives the reason for each).
 
 The second-to-last lines are the kernels JSON object and the card's name
@@ -136,6 +158,70 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host ms that fn() takes to return (to enqueue its work) over
+    reps runs, the device idle before each."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of fn() over reps runs, each between two CUDA events
+    queued behind a spin kernel that outlasts the host's enqueue of fn():
+    the events then span the card's work and not the host's (after a
+    warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # twice fn()'s whole time (enqueue and run) at up to 2e9 cycles a second
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def kernel_ms(h, calls) -> tuple:
+    """(device ms, host ms) per frame of a kernel's recorded calls: the
+    card's time for the calls (device_ms, 20 runs) and the time the host
+    takes to enqueue them."""
+    def frame_calls():
+        for c in calls:
+            h.replay(c, True)
+
+    return device_ms(frame_calls, 20), host_ms(frame_calls, 20)
+
+
+# plain versions that take seconds a frame: replayed once, no warm-up
+SLOW_PLAIN = ("raster_gbuf", "bvh_occlusion", "raster_vis")
+
+
+def plain_ms(h, calls) -> float:
+    """ms per frame of a kernel's plain version on its recorded calls."""
+    if h.name in SLOW_PLAIN:
+        return sum(cuda_ms(lambda: h.replay(c, False), 1, warmup=False) for c in calls)
+    return sum(cuda_ms(lambda: h.replay(c, False), 3) for c in calls)
+
+
 def timed_frames(frame, warmups: int, reps: int) -> list:
     """Per-frame device ms (CUDA events) after warm-ups."""
     import torch
@@ -194,21 +280,23 @@ def profile_passes(frame, card: str, pass_names) -> None:
 # the least time the card could take for a kernel call
 # ---------------------------------------------------------------------------
 
-def kernel_work(name: str, call, pops=None) -> tuple:
+def kernel_work(name: str, call, data=None) -> tuple:
     """(bytes, operations) that one recorded call must move and compute:
     each input byte it needs read once, each output byte written once;
     operations counted from the kernel's arithmetic on this call's own
-    data (records per tile, lights per pixel, the walk's pops)."""
+    data (records per tile, the pixel-record pairs where the record covers
+    and the pixels with a winner; lights per pixel; the walk's inner pops
+    and its triangle tests up to each leaf's first hit: ``data`` carries
+    the counts of the raster and of the walk)."""
     import torch
 
     args, kwargs = call
     if name == "raster_gbuf":
         from transmission_renderer_tpu_torch.ops.raster_gbuf import (
-            TILE_H, TILE_W, active_channels)
+            TILE_H, TILE_W, _num_classes, active_channels)
 
         _, tile_ids, tile_start, _, width, height = args
-        tiles = -(-width // TILE_W) * -(-height // TILE_H)
-        nc = (tile_start.numel() - 1) // tiles
+        nc = _num_classes(tile_start, width, height)
         pc = kwargs.get("pass_class")
         base = tile_ids.long() * nc
         lo = tile_start[base + (0 if pc is None else pc)]
@@ -218,10 +306,20 @@ def kernel_work(name: str, call, pops=None) -> tuple:
         planes = len(active_channels(kwargs.get("pos_derivs", True),
                                      kwargs.get("uv_channels", True)))
         seeds = 1 + (kwargs.get("max_depth_tiles") is not None)
+        uv, pd = kwargs.get("uv_channels", True), kwargs.get("pos_derivs", True)
         # 42 of a record's 64 floats are read; per pixel and record three
-        # edge functions, the 1/w and z sums, a divide and 8 tests
+        # edge functions and their coverage tests (15 operations), and
+        # where the record covers the pixel (data[0] such pairs) the w and
+        # z sums, a divide and 5 tests more (31 in all); per pixel with a
+        # winner (data[1]) its interpolation once: 11 operations of set-up
+        # (edge and coefficient sums, 1/D, the 2/(w D^2) scales), 6 per
+        # interpolated value (pos, nrm, uv) and 18 more per derivative
+        # pair (pos with pos_derivs, uv)
+        covered, winners = data
         nbytes = recs * 42 * 4 + tile_ids.numel() * 12 + px * 4 * (seeds + planes)
-        return nbytes, recs * TILE_H * TILE_W * 31
+        interp = 11 + 6 * (6 + 2 * uv) + 18 * (2 * uv + 3 * pd)
+        pairs = recs * TILE_H * TILE_W
+        return nbytes, (pairs - covered) * 15 + covered * 31 + winners * interp
     if name == "tap_finish":
         quads, rows, uv, lod, _, classes = args
         m, lmax = uv.shape[0], max(classes)
@@ -265,10 +363,17 @@ def kernel_work(name: str, call, pops=None) -> tuple:
         return nbytes, (runs + k * nbig) * tile_w * tile_h * 31
     if name == "bvh_occlusion":
         _, table, rays, _ = args
-        inner, leaf = pops
-        # a slab test: 6 sub, 6 mul, 10 min/max, 3 compares; a
-        # Moller-Trumbore test ~55 (the plain walk tests the whole leaf)
-        return table.nbytes + rays.nbytes + rays.shape[1], inner * 8 * 25 + leaf * 16 * 55
+        inner, tests = data
+        # the table (node planes, triangles as v0 / e1 / e2) once; a slab
+        # test: 6 sub, 6 mul, 10 min/max, 3 compares; the triangle tests a
+        # leaf runs up to its first hit, each up to where it leaves
+        # (tests[s]: those leaving at stage s): at the determinant 16
+        # operations (a cross product of 9, a dot of 5, |det| and its
+        # test), at u 28 (1/det, origin - v0, a dot and its scale, two
+        # tests), at v 46 (a cross product, a dot, its scale, u + v, two
+        # tests), the whole test 54 (t's dot and scale, two tests)
+        nbytes = sum(t.nbytes for t in table) + rays.nbytes + rays.shape[1]
+        return nbytes, inner * 8 * 25 + sum(n * c for n, c in zip(tests, (16, 28, 46, 54)))
     raise KeyError(name)
 
 
@@ -305,15 +410,13 @@ def parity(name, got, ref):
     """(max_abs_err, differing count, within tolerance) for one call."""
     err, diffs = _diff(got, ref)
     if name == "raster_gbuf":
-        # tri/material exact, depth 1e-7, attributes atol 1e-4 / rtol 1e-3
-        from transmission_renderer_tpu_torch.ops.raster_gbuf import INT_CHANNELS
-
-        bad = 0
-        for key, (d, r) in zip(ref, diffs):
-            tol = (0.0 if key in INT_CHANNELS else 1e-7 if key == "depth"
-                   else 1e-4 + 1e-3 * r.abs())
-            bad += int((d > tol).sum())
-        return err, bad, bad == 0
+        # every channel exact: tri, material and each float plane equal
+        # (NaN where both are NaN), so the max abs error is 0
+        bad = sum(int((~((got[k] == r) | (got[k].isnan() & r.isnan()))).sum())
+                  for k, r in ref.items() if r.is_floating_point())
+        bad += sum(int((got[k] != r).sum()) for k, r in ref.items()
+                   if not r.is_floating_point())
+        return err, bad, bad == 0 and err == 0.0
     if name == "raster_vis":
         # tri ids equal, depth 1e-7, barycentrics 1e-6
         bad = sum(int((d > tol).sum()) for (d, _), tol in zip(diffs, (0.0, 1e-7, 1e-6, 1e-6)))
@@ -330,6 +433,19 @@ def parity(name, got, ref):
     return err, bad, bad == 0
 
 
+def raster_runs(call) -> tuple:
+    """(tiles, records, mean run, busiest tile's run) of a kernel-1 call:
+    the run of each listed tile in its pass."""
+    from transmission_renderer_tpu_torch.ops.raster_gbuf import _num_classes, _tile_runs
+
+    args, kwargs = call
+    _, tile_ids, tile_start, _, width, height = args
+    count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
+                       kwargs.get("pass_class"))[1]
+    recs = int(count.sum())
+    return tile_ids.numel(), recs, recs / max(tile_ids.numel(), 1), int(count.max())
+
+
 def check_parity(handles, calls, max_err, tag: str) -> None:
     """Replay every recorded call through the kernel and the plain
     version; raise on a disagreement."""
@@ -344,12 +460,20 @@ def check_parity(handles, calls, max_err, tag: str) -> None:
                 f"{'ok' if ok else 'FAIL'}")
             max_err[h.name] = max(max_err.get(h.name, 0.0), err)
             require(ok, f"{h.name}: kernel disagrees with its plain version")
+            if h.name == "raster_gbuf":
+                tiles, recs, mean, busiest = raster_runs(call)
+                log(f"  runs {tag}raster_gbuf[{i}]: {tiles} tiles, {recs} records, mean "
+                    f"{mean:.1f} a tile, busiest tile {busiest}")
 
 
-def check_occlusion(calls, n_kinds: int, tag: str) -> list:
+def check_occlusion(calls, n_kinds: int, tag: str, tri_vertices, positions) -> list:
     """Replay each recorded occlusion call through the kernel and the plain
-    walk; raise unless the hit sets are equal. -> per call (inner pops,
-    leaf pops, rays, live rays, sun rays hit); the sun's rays come first."""
+    walk, over the kernel's own table and over the packet table built
+    apart from it from the frame's triangles (``tri_vertices`` into the
+    world ``positions``); raise unless all three hit sets are equal and
+    the two walks count alike. -> per call (inner pops, leaf pops, rays,
+    live rays, sun rays hit, triangle tests by exit stage [4]); the sun's
+    rays come first."""
     import torch
     from transmission_renderer_tpu_torch.ops import bvh_packet
     from transmission_renderer_tpu_torch.ops.bvh import occlusion_walk
@@ -359,16 +483,39 @@ def check_occlusion(calls, n_kinds: int, tag: str) -> list:
     for i, call in enumerate(calls):
         tree, table, rays, t_min = call[0]
         got = bvh_packet.KERNEL.replay(call, True)
-        ref, inner, leaf = occlusion_walk(tree, table, rays, t_min)
+        ref, inner, leaf, tests = occlusion_walk(tree, table, rays, t_min)
+        packet = bvh_packet.packet_walk_table(tree, tri_vertices, positions)
+        walk_p = occlusion_walk(tree, packet, rays, t_min)
         torch.cuda.synchronize()
         bad = int((got != ref).sum())
+        bad_p = int((got != walk_p[0]).sum())
+        alike = all(torch.equal(a, b) for a, b in zip((ref, inner, leaf, tests), walk_p))
         n = rays.shape[1]
+        stages = [int(s) for s in tests.sum(dim=0)]
         rows.append((int(inner.sum()), int(leaf.sum()), n, int((rays[9] > t_min).sum()),
-                     int(got[: n // n_kinds].sum())))
+                     int(got[: n // n_kinds].sum()), stages))
+        ok = bad == 0 and bad_p == 0 and alike
         log(f"parity {tag}bvh_occlusion[{i}]: {n} rays ({rows[-1][3]} live), hits "
-            f"{int(got.sum())}, differing {bad}, inner pops {rows[-1][0]}, leaf pops "
-            f"{rows[-1][1]}, {'ok' if bad == 0 else 'FAIL'}")
+            f"{int(got.sum())}, differing {bad} from the walk over the kernel's table, "
+            f"{bad_p} over the packet table (walks count alike: {alike}), inner pops "
+            f"{rows[-1][0]}, leaf pops {rows[-1][1]}, triangle tests to the first hit "
+            f"{sum(stages)} (leaving at the determinant, u, v, end: {stages}), "
+            f"{'ok' if ok else 'FAIL'}")
+        # divergence: a warp of 32 consecutive rays, one per thread, takes
+        # as many steps as its longest walk; over the warps that hold a
+        # live ray, the mean of that longest walk against the mean walk
+        pad = -n % 32
+        pops = torch.cat([inner + leaf, inner.new_zeros(pad)]).reshape(-1, 32)
+        live = torch.cat([rays[9] > t_min,
+                          torch.zeros(pad, dtype=torch.bool, device=rays.device)]).reshape(-1, 32)
+        busy = live.any(dim=1)
+        mean_live = float(pops[live].double().mean()) if bool(busy.any()) else 0.0
+        mean_warp = float(pops.amax(dim=1)[busy].double().mean()) if bool(busy.any()) else 0.0
+        log(f"  pops {tag}bvh_occlusion[{i}]: {mean_live:.3f} per live ray, mean over the "
+            f"{int(busy.sum())} warps holding a live ray of the warp's largest "
+            f"{mean_warp:.3f}, ratio {mean_warp / max(mean_live, 1e-9):.3f}")
         require(bad == 0, "bvh_occlusion: the kernel's hit set differs from its plain walk")
+        require(bad_p == 0 and alike, "bvh_occlusion: the walk over the packet table differs")
     return rows
 
 
@@ -460,6 +607,74 @@ def golden_keep_mask(cfg):
     return keep.reshape(cfg.tiles_y * cfg.tile_h, -1)[: cfg.height, : cfg.width]
 
 
+def flagship_scene(dev):
+    """The flagship scene, camera and lights (tests/golden_defs.py::
+    render_hd_golden) on ``dev`` -> (builder, scene, draw list, flags,
+    1080p frame params, lights)."""
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.models.procedural import build_dragon_scene
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    builder = build_dragon_scene(roughness_override=0.25)
+    scene, dl, flags = builder.finish_bundle(device=dev)
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
+    rig.camera.pitch = -0.25
+    rig.sun_yaw = 4.8
+    params = make_frame_params(RenderConfig(width=1920, height=1080), rig.camera.view_matrix(),
+                               rig.camera.position, rig.sun_dir(), device=dev)
+    lights = pack_lights([
+        point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
+        point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
+    ], device=dev)
+    return builder, scene, dl, flags, params, lights
+
+
+def port_handles() -> tuple:
+    """Every kernel's handle: the flagship's four, then the occlusion
+    walk (ray-traced frames) and the visibility raster (vis frames)."""
+    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_gbuf, raster_vis, tap_finish
+    from transmission_renderer_tpu_torch.render import shade_kernel
+
+    return (raster_gbuf.KERNEL, tap_finish.TAP_KERNEL, shade_kernel.KERNEL,
+            tap_finish.FETCH_KERNEL, bvh_packet.KERNEL, raster_vis.KERNEL)
+
+
+def kernel_times() -> int:
+    """--kernel-times: every kernel of the package beside this script on
+    the calls of the widest 1080p frame that launches it (the ray-traced
+    frame, then the visibility-buffer frame for the kernels it alone
+    launches), per frame: ms (the card's time, device_ms) and host ms to
+    enqueue them, as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    from transmission_renderer_tpu_torch import kernels
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+
+    dev = torch.device("cuda", 0)
+    kernels.build()
+    builder, scene, dl, flags, params, lights = flagship_scene(dev)
+    bvh = builder.build_rt_bvh(device=dev)
+    handles = port_handles()
+    frames = ((RenderConfig(width=1920, height=1080, ray_traced_shadows=True), {"bvh": bvh}),
+              (RenderConfig(width=1920, height=1080, use_pallas_raster=False), {}))
+    out = {}
+    for cfg, kw in frames:
+        calls = capture(handles, lambda cfg=cfg, kw=kw: render_frame(
+            scene, dl, params, lights, cfg, flags, **kw))
+        for h in handles:
+            if calls[h.name] and h.name not in out:
+                dev_ms, h_ms = kernel_ms(h, calls[h.name])
+                out[h.name] = {"ms": dev_ms, "host_ms": h_ms, "calls": len(calls[h.name])}
+    print(json.dumps({"kernel_times": out, "root": ROOT, "card": card_line()}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -475,12 +690,9 @@ def main() -> int:
 
     from transmission_renderer_tpu_torch import kernels
     from transmission_renderer_tpu_torch.config import RenderConfig
-    from transmission_renderer_tpu_torch.models.procedural import build_dragon_scene
-    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_gbuf, raster_vis, tap_finish
-    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
-    from transmission_renderer_tpu_torch.render import shade_kernel
-    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
-    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_gbuf, raster_vis
+    from transmission_renderer_tpu_torch.ops.cull import transform_vertices
+    from transmission_renderer_tpu_torch.render.frame import render_frame
     from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
     from transmission_renderer_tpu_torch.utils.png import read_png
     from transmission_renderer_tpu_torch.utils.profiling import PASS_NAMES
@@ -495,19 +707,8 @@ def main() -> int:
 
     # ---- 3. scene --------------------------------------------------------------
     t0 = time.perf_counter()
-    builder = build_dragon_scene(roughness_override=0.25)
-    scene, dl, flags = builder.finish_bundle(device=dev)
+    builder, scene, dl, flags, params, lights = flagship_scene(dev)
     cfg = RenderConfig(width=1920, height=1080)
-    rig = CameraRig()
-    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
-    rig.camera.pitch = -0.25
-    rig.sun_yaw = 4.8
-    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
-                               rig.sun_dir(), device=dev)
-    lights = pack_lights([
-        point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
-        point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
-    ], device=dev)
     n_tris = int(dl.tri_vtx.shape[0])
     log(f"scene: dragon {n_tris} triangles, {cfg.width}x{cfg.height}, built in "
         f"{time.perf_counter() - t0:.2f} s, flags {flags}")
@@ -515,8 +716,7 @@ def main() -> int:
     def frame(**kw):
         return render_frame(scene, dl, params, lights, cfg, flags, **kw)
 
-    handles = (raster_gbuf.KERNEL, tap_finish.TAP_KERNEL, shade_kernel.KERNEL,
-               tap_finish.FETCH_KERNEL)
+    handles = port_handles()[:4]
 
     # ---- 4. kernel parity at the path's own shapes -----------------------------
     calls = capture(handles, frame)
@@ -559,12 +759,11 @@ def main() -> int:
         f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
     profile_passes(frame, card, PASS_NAMES)
     for h in handles:
-        k_ms = p_ms = 0.0
-        for call in calls[h.name]:
-            k_ms += cuda_ms(lambda: h.replay(call, True), 20)
-            p_ms += cuda_ms(lambda: h.replay(call, False), 3)
-        log(f"kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame, plain "
-            f"{p_ms:.3f} ms/frame ({len(calls[h.name])} call(s) per frame)")
+        k_ms, h_ms = kernel_ms(h, calls[h.name])
+        p_ms = plain_ms(h, calls[h.name])
+        log(f"kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame on the device (host "
+            f"{h_ms:.3f}), plain {p_ms:.3f} ms/frame "
+            f"({len(calls[h.name])} call(s) per frame)")
 
     # ---- 7. ray-traced shadows ---------------------------------------------------
     cfg_rt = RenderConfig(width=1920, height=1080, ray_traced_shadows=True)
@@ -576,13 +775,16 @@ def main() -> int:
     def rt_frame(**kw):
         return render_frame(scene, dl, params, lights, cfg_rt, flags, bvh=bvh, **kw)
 
-    rt_handles = handles + (bvh_packet.KERNEL,)
+    rt_handles = port_handles()[:5]
     # (a) the occlusion kernel's hit set, exactly; the plain walk also
-    # counts the pops that the bound's operations come from
+    # counts the pops and triangle tests that the bound's operations come
+    # from. The packet table is built from the frame's world positions
+    # (the geometry pass's transform of the same draw list)
     n_kinds = 1 + lights.num  # the sun and each light
+    world_pos = transform_vertices(scene, dl, params.proj_view)[0]
     rt_calls = capture(rt_handles, rt_frame)
-    occl = check_occlusion(rt_calls["bvh_occlusion"], n_kinds, "rt ")
-    pops = [(r[0], r[1]) for r in occl]
+    occl = check_occlusion(rt_calls["bvh_occlusion"], n_kinds, "rt ", dl.tri_vtx, world_pos)
+    walk_counts = [(r[0], r[5]) for r in occl]
     max_err["bvh_occlusion"] = 0.0
     log(f"rt rays: {sum(r[2] for r in occl)} traced, {sum(r[3] for r in occl)} live "
         f"(the rest are invalid pixels and cluster-gated lights); shadowed sun rays: "
@@ -620,17 +822,24 @@ def main() -> int:
     profile_passes(rt_frame, card, PASS_NAMES)
     kernel_rows = []
     for h in rt_handles:
-        k_ms = p_ms = 0.0
-        for call in rt_calls[h.name]:
-            k_ms += cuda_ms(lambda: h.replay(call, True), 20)
-            if h.name == "bvh_occlusion":  # the plain walk takes seconds
-                p_ms += cuda_ms(lambda: h.replay(call, False), 1, warmup=False)
-            else:
-                p_ms += cuda_ms(lambda: h.replay(call, False), 3)
-        per_call = pops if h.name == "bvh_occlusion" else [None] * len(rt_calls[h.name])
+        k_ms, h_ms = kernel_ms(h, rt_calls[h.name])
+        p_ms = plain_ms(h, rt_calls[h.name])
+        if h.name == "bvh_occlusion":
+            per_call = walk_counts
+        elif h.name == "raster_gbuf":  # covering pixel-record pairs, pixels with a winner
+            per_call = [(raster_gbuf.covered_pairs(*a[:3], *a[4:6], kw.get("pass_class")),
+                         int((h.replay((a, kw), True)["tri"] >= 0).sum()))
+                        for a, kw in rt_calls[h.name]]
+            pairs = [raster_runs(c)[1] * 1024 for c in rt_calls[h.name]]
+            log(f"rt kernel raster_gbuf per call: pixel-record pairs {pairs}, where the "
+                f"record covers the pixel {[p[0] for p in per_call]}, pixels with a winner "
+                f"{[p[1] for p in per_call]}")
+        else:
+            per_call = [None] * len(rt_calls[h.name])
         works = [kernel_work(h.name, c, p) for c, p in zip(rt_calls[h.name], per_call)]
         b_ms, b_by = bound_of(works)
-        log(f"rt kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame, plain {p_ms:.3f} "
+        log(f"rt kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame on the device (host "
+            f"{h_ms:.3f}), plain {p_ms:.3f} "
             f"ms/frame, bound {b_ms:.4f} ms by {b_by} ({sum(w[0] for w in works)} "
             f"bytes, {sum(w[1] for w in works)} operations), {b_ms / k_ms:.4f} of "
             f"the bound reached, {len(rt_calls[h.name])} call(s) per frame")
@@ -667,7 +876,8 @@ def main() -> int:
         return render_frame(scene, dl, params, lights, cfg_half, flags, bvh=bvh, **kw)
 
     half_calls = capture(rt_handles, half_frame)
-    occl_h = check_occlusion(half_calls["bvh_occlusion"], n_kinds, "half-res ")
+    occl_h = check_occlusion(half_calls["bvh_occlusion"], n_kinds, "half-res ", dl.tri_vtx,
+                             world_pos)
     log(f"half-res rays: {sum(r[2] for r in occl_h)} traced, "
         f"{sum(r[3] for r in occl_h)} live")
     # the opaque shade reads the upsampled factors: 0.25, 0.5 and 0.75
@@ -698,7 +908,7 @@ def main() -> int:
     def vis_frame(**kw):
         return render_frame(scene, dl, params, lights, cfg_vis, flags, **kw)
 
-    vis_handles = rt_handles + (raster_vis.KERNEL,)
+    vis_handles = port_handles()
     # (a) kernel 6 on the frame's own inputs, in both orders
     vis_calls = capture((raster_vis.KERNEL,), vis_frame)
     require(len(vis_calls["raster_vis"]) == 2,
@@ -743,13 +953,12 @@ def main() -> int:
         f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
     profile_passes(vis_frame, card, PASS_NAMES)
     h = raster_vis.KERNEL
-    k_ms = p_ms = 0.0
-    for call in vis_calls[h.name]:
-        k_ms += cuda_ms(lambda: h.replay(call, True), 20)
-        p_ms += cuda_ms(lambda: h.replay(call, False), 1, warmup=False)
+    k_ms, h_ms = kernel_ms(h, vis_calls[h.name])
+    p_ms = plain_ms(h, vis_calls[h.name])
     works = [kernel_work(h.name, c) for c in vis_calls[h.name]]
     b_ms, b_by = bound_of(works)
-    log(f"vis kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame, plain {p_ms:.3f} "
+    log(f"vis kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame on the device (host "
+        f"{h_ms:.3f}), plain {p_ms:.3f} "
         f"ms/frame, bound {b_ms:.4f} ms by {b_by} ({sum(w[0] for w in works)} bytes, "
         f"{sum(w[1] for w in works)} operations), {b_ms / k_ms:.4f} of the bound "
         f"reached, {len(vis_calls[h.name])} call(s) per frame")
@@ -770,4 +979,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(kernel_times() if sys.argv[1:] == ["--kernel-times"] else main())

@@ -94,7 +94,7 @@ def test_occlusion_matches_reference(geo, reference_hits, walk):
         table = bvh_packet.packet_walk_table(got, t_idx, t_pos)
         rays = bvh_packet.ray_planes(torch.from_numpy(o), torch.from_numpy(d),
                                      torch.from_numpy(tm))
-        hit, inner, leaf = bvh.occlusion_walk(got, table, rays)
+        hit, inner, leaf, _ = bvh.occlusion_walk(got, table, rays)
         assert int(inner[tm == 0].sum()) == 0 and int(leaf.sum()) > 0
     else:
         hit = bvh_packet.trace_occlusion_packets(got, t_idx, t_pos, torch.from_numpy(o),
@@ -231,3 +231,141 @@ def test_shadow_factors_match_reference(geo):
     np.testing.assert_array_equal(g_sun.numpy(), np.asarray(r_sun))
     np.testing.assert_array_equal(g_light.numpy(), np.asarray(r_light))
     assert (g_sun.numpy() == 0).any() and (g_light.numpy() == 0).any()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's walk table (16-byte vectors: node planes, v0 / e1 / e2)
+# ---------------------------------------------------------------------------
+
+def test_kernel_walk_table_layout(geo):
+    """Node rows are the boxes as 6 planes x 8 children; each leaf
+    triangle is v0 and e1 = v1 - v0, e2 = v2 - v0 bit for bit (float32
+    subtraction, as the walk does it), with a zero fourth lane."""
+    idx, pos, _, got = geo
+    table = bvh_packet.kernel_walk_table(got, torch.from_numpy(idx), torch.from_numpy(pos))
+    boxes = got.node_boxes.numpy().reshape(-1, bvh.WIDE, 6)
+    np.testing.assert_array_equal(table.nodes.numpy().reshape(-1, 6, bvh.WIDE),
+                                  boxes.transpose(0, 2, 1))
+    v = pos[idx[got.leaf_tri.numpy().reshape(-1)]]  # [L * 16, 3, 3]
+    tris = table.tris.numpy().reshape(-1, 3, 4)
+    assert tris.shape[0] == got.num_leaves * bvh.LEAF_TRIS
+    np.testing.assert_array_equal(tris[:, 0, :3], v[:, 0])
+    np.testing.assert_array_equal(tris[:, 1, :3], v[:, 1] - v[:, 0])
+    np.testing.assert_array_equal(tris[:, 2, :3], v[:, 2] - v[:, 0])
+    assert not tris[:, :, 3].any()
+    assert table.nodes.is_contiguous() and table.tris.is_contiguous()
+
+
+def test_kernel_table_walk_matches_packet_walk(geo, reference_hits):
+    """The plain walk reading the kernel's table gives the packet table's
+    hits and pops on every ray (dead ones included) and the reference's
+    hit set."""
+    idx, pos, _, got = geo
+    (o, d, tm), ref = reference_hits
+    t_idx, t_pos = torch.from_numpy(idx), torch.from_numpy(pos)
+    rays = bvh_packet.ray_planes(torch.from_numpy(o), torch.from_numpy(d),
+                                 torch.from_numpy(tm))
+    packet = bvh.occlusion_walk(got, bvh_packet.packet_walk_table(got, t_idx, t_pos), rays)
+    kernel = bvh.occlusion_walk(got, bvh_packet.kernel_walk_table(got, t_idx, t_pos), rays)
+    for a, b in zip(kernel, packet):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(kernel[0].numpy(), ref)
+
+
+def test_kernel_table_walk_ragged_leaf_half_dead():
+    """A mesh whose last leaf is ragged, rays with every other one dead:
+    the plain walk over either table gives the same hits and pops, and
+    dead rays never pop."""
+    from transmission_renderer_tpu.models.procedural import make_plane_mesh, make_sphere_mesh
+
+    p1, _, _, i1 = make_sphere_mesh(20, 41)
+    p2, _, _, i2 = make_plane_mesh(4.0, y=-1.2)
+    pos = np.concatenate([p1, p2]).astype(np.float32)
+    idx = np.concatenate([np.asarray(i1).reshape(-1, 3),
+                          np.asarray(i2).reshape(-1, 3) + len(p1)]).astype(np.int32)
+    tree = bvh.build_bvh(idx, pos, device="cpu")
+    assert tree.num_tris % bvh.LEAF_TRIS
+    rng = np.random.default_rng(11)
+    o = rng.uniform(-2, 2, (3000, 3)).astype(np.float32)
+    d = rng.normal(size=(3000, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = rng.uniform(0.5, 20.0, 3000).astype(np.float32)
+    tm[::2] = 0.0
+    t_idx, t_pos = torch.from_numpy(idx), torch.from_numpy(pos)
+    rays = bvh_packet.ray_planes(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+    packet = bvh.occlusion_walk(tree, bvh_packet.packet_walk_table(tree, t_idx, t_pos), rays)
+    kernel = bvh.occlusion_walk(tree, bvh_packet.kernel_walk_table(tree, t_idx, t_pos), rays)
+    for a, b in zip(kernel, packet):
+        assert torch.equal(a, b)
+    hit, inner, leaf, tests = kernel
+    assert bool(hit.any()) and not bool(hit[::2].any())
+    assert int(inner[::2].sum()) == 0 and int(leaf[::2].sum()) == 0
+    assert int(tests[::2].sum()) == 0
+
+
+def _scalar_ray_tri(o, d, t_min, t_max, v0, e1, e2):
+    """Kernel 5's triangle test as the kernel runs it, one float32 scalar
+    at a time, leaving at the first failed test -> (hit, exit stage)."""
+    f = np.float32
+    pv = (d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2], d[0] * e2[1] - d[1] * e2[0])
+    det = e1[0] * pv[0] + e1[1] * pv[1] + e1[2] * pv[2]
+    if not abs(det) > f(1e-12):
+        return False, 0
+    inv = f(1.0) / det
+    tv = (o[0] - v0[0], o[1] - v0[1], o[2] - v0[2])
+    u = (tv[0] * pv[0] + tv[1] * pv[1] + tv[2] * pv[2]) * inv
+    if not (u >= 0 and u <= 1):
+        return False, 1
+    qv = (tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+          tv[0] * e1[1] - tv[1] * e1[0])
+    v = (d[0] * qv[0] + d[1] * qv[1] + d[2] * qv[2]) * inv
+    if not (v >= 0 and u + v <= 1):
+        return False, 2
+    t = (e2[0] * qv[0] + e2[1] * qv[1] + e2[2] * qv[2]) * inv
+    return bool(t > t_min and t < t_max), 3
+
+
+def test_ray_tri_exit_stage_matches_the_early_leaving_test():
+    """The plain test's hit and exit stage (what kernel 5's bound counts)
+    equal a scalar float32 test that leaves at its first failure, on
+    seeded rays aimed near seeded triangles: every stage occurs."""
+    rng = np.random.default_rng(21)
+    n = 600
+    v = rng.uniform(-1, 1, (n, 3, 3)).astype(np.float32)
+    v[::5, 2] = v[::5, 1]  # degenerate: the determinant fails
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    aim = v.mean(axis=1) + rng.normal(0, 0.6, (n, 3)).astype(np.float32)
+    d = (aim - o) / np.linalg.norm(aim - o, axis=1, keepdims=True)
+    d = d.astype(np.float32)
+    tm = rng.uniform(0.5, 8.0, n).astype(np.float32)
+    e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    hit, stage = bvh._ray_tri(*(torch.from_numpy(a) for a in (o, d)), 0.001,
+                              torch.from_numpy(tm),
+                              *(torch.from_numpy(a) for a in (v[:, 0], e1, e2)))
+    want = [_scalar_ray_tri(o[i], d[i], np.float32(0.001), tm[i], v[i, 0], e1[i], e2[i])
+            for i in range(n)]
+    np.testing.assert_array_equal(hit.numpy(), [w[0] for w in want])
+    np.testing.assert_array_equal(stage.numpy(), [w[1] for w in want])
+    assert set(stage.numpy().tolist()) == {0, 1, 2, 3} and hit.any()
+
+
+def test_walk_counts_triangle_tests_to_the_first_hit(geo, reference_hits):
+    """The plain walk's triangle tests per ray: none for dead rays; for a
+    ray that misses, every real triangle of every leaf it pops; for a ray
+    that hits, fewer once it stops at a leaf's first hit, which ran the
+    whole test. The ragged last leaf holds num_tris % 16 triangles."""
+    idx, pos, _, got = geo
+    (o, d, tm), ref = reference_hits
+    rays = bvh_packet.ray_planes(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
+    table = bvh_packet.packet_walk_table(got, torch.from_numpy(idx), torch.from_numpy(pos))
+    hit, _, leaf, tests = bvh.occlusion_walk(got, table, rays)
+    np.testing.assert_array_equal(hit.numpy(), ref)
+    total = tests.sum(dim=1)
+    ragged = got.num_tris % bvh.LEAF_TRIS
+    assert ragged and int(total[torch.from_numpy(tm == 0)].sum()) == 0
+    miss = ~hit & (leaf > 0)
+    full = bvh.LEAF_TRIS * leaf
+    assert bool(((total == full) | (total == full - bvh.LEAF_TRIS + ragged))[miss].all())
+    assert bool((total[hit] <= full[hit]).all()) and bool((tests[hit, 3] >= 1).all())
+    assert bool((total[hit] < full[hit] - bvh.LEAF_TRIS + ragged).any())
+    assert int(tests[:, :3].sum()) > 0

@@ -1,8 +1,10 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card,
 at small shapes: one frame of each scene without ray-traced shadows,
 with them, and with them traced at half resolution (kernel 5, and kernel
-3 reading shadow factors, upsampled ones in the last), and kernel 5
-alone on a small mesh; kernel 6 (the visibility raster) in both walk
+3 reading shadow factors, upsampled ones in the last); kernel 5 alone on
+a small mesh, also with half the rays dead; kernel 1 alone on runs of
+several hundred records with ties across segments, a seeded pass and a
+depth-peel bound; kernel 6 (the visibility raster) in both walk
 orders on random scenes, and the visibility-buffer frame of each scene.
 Marked ``cuda``: on a host without a CUDA device they skip (the check
 runs inside the fixture, never at import).
@@ -139,12 +141,10 @@ def test_frame_launches_every_kernel(captured):
                                   "transmission_fetch", "bvh_occlusion"])
 def test_kernel_matches_plain(captured, name):
     """Each recorded call through the kernel and the plain version, with
-    chip_smoke.py's tolerances: raster tri/material exact, depth 1e-7,
-    attributes atol 1e-4 / rtol 1e-3; tap and fetch 1e-6; shade 1e-5 on
+    chip_smoke.py's tolerances: the raster's channels equal bit for bit
+    (tri, material and every float plane); tap and fetch 1e-6; shade 1e-5 on
     all but 0.05% of the pixels (with the shadow factors in the -rt
     frames, upsampled in the -rt-half ones); the occlusion hit set exact."""
-    from transmission_renderer_tpu_torch.ops import raster_gbuf
-
     handle = {h.name: h for h in _handles()}[name]
     (scene, rt), _, out = captured
     calls, _ = out[name]
@@ -158,15 +158,9 @@ def test_kernel_matches_plain(captured, name):
             assert bool(((sun_f > 0.0) & (sun_f < 1.0)).any())
     for call in calls:
         got, ref = handle.replay(call, True), handle.replay(call, False)
-        if isinstance(ref, dict):
+        if isinstance(ref, dict):  # the raster: every channel bit for bit
             for key, r in ref.items():
-                g, r = got[key].cpu().numpy(), r.cpu().numpy()
-                if key in raster_gbuf.INT_CHANNELS:
-                    np.testing.assert_array_equal(g, r, err_msg=key)
-                elif key == "depth":
-                    np.testing.assert_allclose(g, r, atol=1e-7, rtol=0)
-                else:
-                    np.testing.assert_allclose(g, r, atol=1e-4, rtol=1e-3, err_msg=key)
+                assert torch.equal(got[key].cpu(), r.cpu()), key
             continue
         if name == "bvh_occlusion":
             assert torch.equal(got, ref)
@@ -180,11 +174,10 @@ def test_kernel_matches_plain(captured, name):
             np.testing.assert_allclose(g, r, atol=1e-6, rtol=0)
 
 
-def test_bvh_occlusion_small_mesh():
-    """Kernel 5 alone: a sphere over a plane, 5000 numpy-seeded rays with
-    dead ones and a ragged last leaf; the hit set equals the plain walk's."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+def _occlusion_small_mesh(dead_every):
+    """Kernel 5 and the plain walk over the packet table on a sphere over a
+    plane (a ragged last leaf), 5000 numpy-seeded rays, every
+    ``dead_every``-th one dead -> (kernel hits, plain hits)."""
     from transmission_renderer_tpu_torch.models.procedural import make_plane_mesh, make_sphere_mesh
     from transmission_renderer_tpu_torch.ops import bvh, bvh_packet
 
@@ -198,20 +191,166 @@ def test_bvh_occlusion_small_mesh():
     d = rng.normal(size=(5000, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tm = rng.uniform(0.5, 20.0, 5000).astype(np.float32)
-    tm[::9] = 0.0
+    tm[::dead_every] = 0.0
     dev = torch.device("cuda")
     tree = bvh.build_bvh(idx, pos, device=dev)
     t_idx, t_pos = torch.from_numpy(idx).to(dev), torch.from_numpy(pos).to(dev)
-    table = bvh_packet.packet_walk_table(tree, t_idx, t_pos)
+    table = bvh_packet.kernel_walk_table(tree, t_idx, t_pos)
     rays = bvh_packet.ray_planes(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
                                  torch.from_numpy(tm).to(dev))
     before = bvh_packet.KERNEL.launches
     got = bvh_packet.KERNEL(True, tree, table, rays, 0.001)
     torch.cuda.synchronize()
     assert bvh_packet.KERNEL.launches == before + 1
-    ref = bvh.trace_occlusion_plain(tree, table.cpu(), rays.cpu())
+    packet = bvh_packet.packet_walk_table(tree, t_idx, t_pos)
+    ref = bvh.trace_occlusion_plain(tree, packet.cpu(), rays.cpu())
     assert bool(ref.any()) and not bool(ref.all())
-    assert torch.equal(got.cpu(), ref)
+    return got.cpu(), ref
+
+
+def test_bvh_occlusion_small_mesh():
+    """Kernel 5 alone: every 9th ray dead; the hit set equals the plain
+    walk's over the packet table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    got, ref = _occlusion_small_mesh(9)
+    assert torch.equal(got, ref)
+
+
+def test_bvh_occlusion_half_the_lanes_dead():
+    """Every other ray dead, so half of each fetch is dropped and the warps
+    refill: the hit set still equals the plain walk's, dead rays miss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    got, ref = _occlusion_small_mesh(2)
+    assert torch.equal(got, ref)
+    assert not bool(got[::2].any())
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: runs longer than a segment, ties across segments, seeds
+# ---------------------------------------------------------------------------
+
+def _gbuf_scene(dev, seed=3, n_tris=700, w=256, h=64):
+    """Random triangles in front of the camera, every one twice (coplanar
+    copies with other materials: exact depth ties), binned into 8x128
+    tiles -> (payload, tile_start)."""
+    from transmission_renderer_tpu_torch.ops import raster, raster_gbuf
+    from transmission_renderer_tpu_torch.scene.camera import (
+        look_at_rh, perspective_matrix_reversed)
+
+    rng = np.random.default_rng(seed)
+    pv = perspective_matrix_reversed(w, h) @ look_at_rh(
+        (0.0, 1.0, 5.0), (0.0, 1.0, 0.0), (0, 1, 0))
+    pos = rng.uniform(-2, 2, (3 * n_tris, 3)).astype(np.float32)
+    tris = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+    tris = np.concatenate([tris, tris])
+    ph = np.concatenate([pos, np.ones((len(pos), 1), np.float32)], -1)
+    clip = torch.from_numpy((ph @ pv.T).astype(np.float32)).to(dev)
+    t = len(tris)
+    tris_t = torch.from_numpy(tris).to(dev)
+    setup = raster.setup_triangles(clip, tris_t, torch.ones(t, dtype=torch.bool, device=dev),
+                                   w, h, 128, 8)
+    cls = torch.from_numpy(np.tile(rng.integers(0, 2, t // 2), 2).astype(np.int32)).to(dev)
+    bins = raster.bin_triangles(setup, w // 128, h // 8, 2, cls, 2,
+                                ((8, 4096), (128, 2048), (2048, 64), (0, 16)))
+    nrm = rng.normal(size=(len(pos), 3)).astype(np.float32)
+    uv = rng.uniform(0, 1, (len(pos), 2)).astype(np.float32)
+    mat = torch.from_numpy(np.arange(t, dtype=np.int32) % 7).to(dev)
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, t).astype(np.float32)).to(dev)
+    rec = raster_gbuf.pack_gbuf_payload(
+        setup, tris_t, mat, scale, torch.from_numpy(pos).to(dev),
+        torch.from_numpy(nrm).to(dev), torch.from_numpy(uv).to(dev), cls)
+    return raster_gbuf.gather_gbuf_payload(rec, bins), bins.tile_start
+
+
+@pytest.mark.parametrize("case", ["long-runs", "seeded", "peel"])
+def test_raster_gbuf_segments_match_plain(case):
+    """Kernel 1 on runs of several hundred records (more than one SEG
+    segment, with coplanar twins tying across segments), a seeded pass
+    over a repeated tile list and a depth-peel bound at exactly the front
+    depths on half the pixels: every channel equals the plain version's
+    on the same tensors on the CPU, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+
+    w, h = 256, 64
+    dev = torch.device("cuda")
+    payload, ts = _gbuf_scene(dev)
+    ids = torch.arange(16, dtype=torch.int32, device=dev)
+    kw = {}
+    if case != "long-runs":
+        ids = torch.tensor([9, 11, 8, 9, 13, 14], dtype=torch.int32, device=dev)
+        front = raster_gbuf.rasterize_gbuffer_tiles(payload, ids, ts, 0, w, h)["depth"]
+        rng = np.random.default_rng(4)
+        half = torch.from_numpy(rng.uniform(size=tuple(front.shape)) < 0.5).to(dev)
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(front.shape))
+                                 .astype(np.float32)).to(dev)
+        bound = torch.where(half, front, front * scale).contiguous()
+        kw = ({"init_depth_tiles": bound, "pass_class": 1} if case == "seeded"
+              else {"max_depth_tiles": bound})
+    before = raster_gbuf.KERNEL.launches
+    got = raster_gbuf.rasterize_gbuffer_tiles(payload, ids, ts, 0, w, h, **kw)
+    torch.cuda.synchronize()
+    assert raster_gbuf.KERNEL.launches == before + 1
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref = raster_gbuf.rasterize_gbuffer_tiles(
+        tuple(p.cpu() for p in payload), ids.cpu(), ts.cpu(), 0, w, h, **cpu)
+    for key, r in ref.items():
+        assert torch.equal(got[key].cpu(), r), key
+    assert int((ref["tri"] >= 0).sum()) > (1000 if case == "long-runs" else 100)
+    if case == "long-runs":
+        nc = (ts.shape[0] - 1) // 16
+        _, count = raster_gbuf._tile_runs(ts, ids, nc, None)
+        assert int(count.max()) > raster_gbuf.SEG
+
+
+@pytest.mark.parametrize("case", ["all", "class1-no-derivs", "1280-slots"])
+def test_raster_gbuf_plan_matches_work_list(case):
+    """The work list kernel 1's plan kernel leaves after a call (the words
+    after the per-pixel keys: item counter, slot count, slot order,
+    running segment count) against gbuf_work_list on the same runs: the
+    same slots, the same segment-count buckets in order (slots of one
+    bucket in any order), the running count of that order, and every item
+    pulled. 1280 slots (a repeated tile list) take the plan's scan past
+    one 1024-thread pass; the channels equal the 16-slot call's, repeated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+
+    w, h = 256, 64
+    dev = torch.device("cuda")
+    payload, ts = _gbuf_scene(dev)
+    ids = torch.arange(16, dtype=torch.int32, device=dev)
+    kw = {"pass_class": 1, "pos_derivs": False} if case == "class1-no-derivs" else {}
+    if case == "1280-slots":
+        ids = ids.repeat(80)
+    out, keys = raster_gbuf._raster_launch(payload, ids, ts, 0, w, h, **kw)
+    torch.cuda.synchronize()
+    k = ids.numel()
+    plan = keys[k * raster_gbuf.TILE_H * raster_gbuf.TILE_W:].cpu().view(torch.int32).long()
+    _, count = raster_gbuf._tile_runs(ts.cpu(), ids.cpu(), (ts.shape[0] - 1) // 16,
+                                      kw.get("pass_class"))
+    order, seg_cum = raster_gbuf.gbuf_work_list(count)
+    n_slots = int(plan[1])
+    got_order, got_cum = plan[2 : 2 + n_slots], plan[2 + k : 2 + k + n_slots]
+    assert n_slots == order.numel() > 0
+    assert sorted(got_order.tolist()) == sorted(order.tolist())
+    nseg = (count + raster_gbuf.SEG - 1) // raster_gbuf.SEG
+    bucket = torch.clamp(nseg, max=raster_gbuf.PLAN_BUCKETS - 1)
+    assert torch.equal(bucket[got_order], bucket[order])
+    assert torch.equal(got_cum, torch.cumsum(nseg[got_order], 0))
+    assert int(plan[0]) >= int(seg_cum[-1])  # every item pulled, then one miss a block
+    if case == "1280-slots":
+        small = raster_gbuf.rasterize_gbuffer_tiles(payload, ids[:16], ts, 0, w, h)
+        for key, r in small.items():
+            assert torch.equal(out[key], r.repeat(80, 1, 1)), key
+    else:
+        ref = raster_gbuf.rasterize_gbuffer_tiles(
+            tuple(p.cpu() for p in payload), ids.cpu(), ts.cpu(), 0, w, h, **kw)
+        for key, r in ref.items():
+            assert torch.equal(out[key].cpu(), r), key
 
 
 # ---------------------------------------------------------------------------

@@ -267,3 +267,149 @@ def _lights_np():
 
     return jax.tree_util.tree_map(
         np.asarray, pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)]))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's decomposition: (tile, segment) races merged by the
+# (depth, -index) key, then one interpolation per pixel
+# ---------------------------------------------------------------------------
+
+def _scene_with(seed, n_v=60, n_t=60, duplicate=False):
+    d = _inputs(seed, n_v, n_t)
+    if duplicate:
+        # every triangle twice, coplanar: equal depths, so the race ties
+        # across segments (the copies carry other materials and scales)
+        rng = np.random.default_rng(seed + 100)
+        n = len(d["tris"])
+        d["tris"] = np.concatenate([d["tris"], d["tris"]])
+        d["mat"] = np.concatenate([d["mat"], rng.integers(5, 9, n).astype(np.int32)])
+        d["scale"] = np.concatenate([d["scale"], d["scale"] * 2.0]).astype(np.float32)
+        d["cls"] = np.concatenate([d["cls"], d["cls"]])
+        d["enabled"] = np.concatenate([d["enabled"], d["enabled"]])
+    _, bins, rec = _port_pipeline(d)
+    return raster_gbuf.gather_gbuf_payload(rec, bins), bins.tile_start
+
+
+def _segment_case(case):
+    """(payload, tile ids, tile_start, keyword arguments) of one case."""
+    all_ids = torch.arange((W // 128) * (H // 8), dtype=torch.int32)
+    if case == "long_run":
+        payload, ts = _scene_with(3, n_v=200, n_t=1000)
+        return payload, all_ids, ts, {}
+    payload, ts = _scene_with(9 if case == "duplicated" else 5,
+                              duplicate=case == "duplicated")
+    if case in ("random", "duplicated"):
+        return payload, all_ids, ts, {}
+    if case in ("class0", "class1"):
+        return payload, all_ids, ts, {"pass_class": int(case[-1])}
+    # a seed or a bound at exactly the tiles' own front depths on half the
+    # pixels (a record there ties it and must lose), scaled elsewhere; a
+    # repeated tile in scrambled order
+    ids = torch.tensor([5, 2, 7, 5, 0, 12], dtype=torch.int32)
+    front = raster_gbuf.rasterize_gbuffer_tiles(payload, ids, ts, 0, W, H)["depth"]
+    rng = np.random.default_rng(4)
+    half = torch.from_numpy(rng.uniform(size=front.shape) < 0.5)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, front.shape).astype(np.float32))
+    bound = torch.where(half, front, front * scale).contiguous()
+    if case == "seeded":
+        return payload, ids, ts, {"init_depth_tiles": bound, "pass_class": 1}
+    return payload, ids, ts, {"max_depth_tiles": bound}
+
+
+_SEQUENTIAL = {}
+
+
+@pytest.mark.parametrize("segment", [1, 3, 32])
+@pytest.mark.parametrize("case", ["random", "duplicated", "seeded", "peel", "class0",
+                                  "class1", "long_run"])
+def test_segmented_race_equals_sequential(case, segment):
+    """Every channel of the segmented race (the kernel's decomposition)
+    equals the sequential walk's bit for bit."""
+    payload, ids, ts, kw = _segment_case(case)
+    if case not in _SEQUENTIAL:
+        _SEQUENTIAL[case] = raster_gbuf.rasterize_gbuffer_tiles_plain(
+            payload, ids, ts, 0, W, H, **kw)
+    ref = _SEQUENTIAL[case]
+    got = raster_gbuf.rasterize_gbuffer_tiles_plain(payload, ids, ts, 0, W, H,
+                                                     segment=segment, **kw)
+    assert set(got) == set(ref)
+    for name, r in ref.items():
+        assert got[name].dtype == r.dtype, name
+        assert torch.equal(got[name], r), name
+    assert int((ref["tri"] >= 0).sum()) > 50
+    nc = (ts.shape[0] - 1) // ((W // 128) * (H // 8))
+    _, count = raster_gbuf._tile_runs(ts, ids, nc, kw.get("pass_class"))
+    if case == "long_run":
+        assert int(count.max()) >= 300  # a run of several hundred records
+    if case == "duplicated":
+        # a pixel won by the first copy of a triangle: its twin ties it
+        assert (ref["material"] < 5)[ref["tri"] >= 0].any()
+
+
+@pytest.mark.parametrize("segment", [1, 3, 32])
+def test_work_list_covers_every_record_once(segment):
+    """Every (tile slot, record) pair of the runs is in exactly one item,
+    items hold 1..segment records, the runs of most segments come first,
+    and the compact form the kernel reads (binary search of the running
+    segment count over the non-empty slots) names the same items."""
+    rng = np.random.default_rng(segment)
+    count = rng.integers(0, 100, 40)
+    count[::7] = 0
+    count[3] = 700
+    start = rng.integers(0, 5000, 40)  # runs may overlap (repeated tiles)
+    start_t, count_t = torch.from_numpy(start), torch.from_numpy(count)
+    slot, begin, end = (a.numpy() for a in raster_gbuf.work_items(start_t, count_t, segment))
+    n = end - begin
+    assert ((n >= 1) & (n <= segment)).all()
+    pairs = sorted((int(s), int(r)) for s, b, e in zip(slot, begin, end) for r in range(b, e))
+    assert pairs == sorted((k, int(start[k]) + j) for k in range(40) for j in range(count[k]))
+    # most segments first (the top bucket of the kernel's plan holds all
+    # the longer runs)
+    bucket = np.minimum(-(-count[slot] // segment), raster_gbuf.PLAN_BUCKETS - 1)
+    assert (np.diff(bucket) <= 0).all()
+    order, seg_cum = (a.numpy() for a in raster_gbuf.gbuf_work_list(count_t, segment))
+    assert len(order) == int((count > 0).sum())
+    assert seg_cum[-1] == len(slot)
+    for i in range(len(slot)):
+        p = int(np.searchsorted(seg_cum, i, side="right"))
+        j = i - (seg_cum[p - 1] if p else 0)
+        assert (order[p], start[order[p]] + j * segment) == (slot[i], begin[i])
+
+
+@pytest.mark.parametrize("case", ["random", "class1", "seeded"])
+def test_covered_pairs_counts_the_covering_records(case):
+    """covered_pairs (the pairs kernel 1's bound charges the depth test
+    for) equals a numpy float32 count: per listed tile, per record of its
+    run in the pass's class, the pixels whose three edge functions pass
+    the top-left rule; a record covers few of a tile's pixels."""
+    payload, ids, ts, kw = _segment_case(case)
+    pc = kw.get("pass_class")
+    got = raster_gbuf.covered_pairs(payload, ids, ts, W, H, pass_class=pc)
+    recs = payload[0].reshape(-1, raster_gbuf.REC_F32).numpy()
+    start, count = raster_gbuf._tile_runs(ts, ids, (ts.shape[0] - 1) // ((W // 128) * (H // 8)),
+                                          pc)
+    nx, ny = (a.numpy() for a in raster_gbuf._pixel_ndc(ids, W, H))
+
+    def covered(e, a, b):
+        return (e > 0) | ((e == 0) & ((a > 0) | ((a == 0) & (b > 0))))
+
+    want = pairs = 0
+    for k in range(len(ids)):
+        for r in recs[int(start[k]) : int(start[k] + count[k])]:
+            if pc is not None and (int(r[15]) >> raster_gbuf.CLASS_SHIFT) != pc:
+                continue
+            pairs += nx[k].size
+            cov = np.ones(nx[k].shape, bool)
+            for j in range(3):
+                a, b, c = r[3 * j : 3 * j + 3]
+                cov &= covered(a * nx[k] + b * ny[k] + c, a, b)
+            want += int(cov.sum())
+    assert got == want
+    assert 0 < want < 0.5 * pairs
+
+
+def test_segmented_race_on_an_empty_tile_list():
+    payload, ts = _scene_with(5)
+    ids = torch.zeros(0, dtype=torch.int32)
+    got = raster_gbuf.rasterize_gbuffer_tiles_plain(payload, ids, ts, 0, W, H, segment=3)
+    assert got["depth"].shape == (0, 8, 128)

@@ -13,3 +13,13 @@
 
 // Finish a C entry point: report a refused launch.
 static inline int trt_launch_status() { return (int)cudaGetLastError(); }
+
+// Blocks of `threads` threads of `kernel` that the card holds resident at
+// once (at least one per SM): the grid of a persistent kernel.
+static inline int trt_resident_blocks(const void* kernel, int threads) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    return sms * (per_sm > 0 ? per_sm : 1);
+}

@@ -160,8 +160,9 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
-          device: torch.device | None = None) -> None:
-    """Validate a kernel operand before its pointer is passed."""
+          device: torch.device | None = None, align: int = 1) -> None:
+    """Validate a kernel operand before its pointer is passed (``align``:
+    the byte alignment its vector loads need)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -172,6 +173,8 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: not aligned to {align} bytes")
 
 
 VOIDP = ctypes.c_void_p

@@ -25,6 +25,7 @@ exactly when it hits in the reference.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -198,9 +199,12 @@ def _ray_aabb(origin, inv_dir, t_max, bmin, bmax):
     return (enter <= exit_) & (exit_ >= 0.0) & (enter <= t_max)
 
 
-def _ray_tri(origin, direction, t_min, t_max, v0, v1, v2):
-    """Moller-Trumbore -> hit bool over the last axis (xyz); broadcasts
-    over leading axes."""
+def _ray_tri(origin, direction, t_min, t_max, v0, e1, e2):
+    """Moller-Trumbore with the edges e1 = v1 - v0, e2 = v2 - v0 -> (hit
+    bool, exit stage int64) over the last axis (xyz); broadcasts over
+    leading axes. The stage is the first test that fails, where a test
+    that leaves early (the kernel's) stops: 0 the determinant, 1 u
+    outside [0, 1], 2 v < 0 or u + v > 1, 3 none (the whole test ran)."""
     def dot(a, b):
         return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
@@ -211,8 +215,6 @@ def _ray_tri(origin, direction, t_min, t_max, v0, v1, v2):
             a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
         ], dim=-1)
 
-    e1 = v1 - v0
-    e2 = v2 - v0
     pvec = cross(direction, e2)
     det = dot(e1, pvec)
     ok = torch.abs(det) > 1e-12
@@ -222,16 +224,52 @@ def _ray_tri(origin, direction, t_min, t_max, v0, v1, v2):
     qvec = cross(tvec, e1)
     v = dot(direction, qvec) * inv_det
     t = dot(e2, qvec) * inv_det
-    return ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    u_out = ~((u >= 0.0) & (u <= 1.0))
+    v_out = ~((v >= 0.0) & (u + v <= 1.0))
+    return hit, torch.where(~ok, 0, torch.where(u_out, 1, torch.where(v_out, 2, 3)))
 
 
-def _walk_chunk(bvh: BVH, table: torch.Tensor, rays: torch.Tensor, t_min: float):
+class WalkTable(NamedTuple):
+    """The occlusion kernel's table (ops/bvh_packet.py::kernel_walk_table),
+    in 16-byte vectors: per node row its 6 planes (min x, y, z, max x, y,
+    z) of 8 children each, and per leaf triangle v0, e1 = v1 - v0 and
+    e2 = v2 - v0, each xyz and a zero."""
+
+    nodes: torch.Tensor  # [N_rows, 6 * WIDE] float32
+    tris: torch.Tensor  # [L * LEAF_TRIS, 12] float32
+
+
+def _table_readers(bvh: BVH, table):
+    """(node boxes of rows [n] -> [n, WIDE, 6], leaf triangles of leaves [n]
+    -> (v0, e1, e2) [n, LEAF_TRIS, 3]) of the packet table
+    (ops/bvh_packet.py::packet_walk_table) or of a WalkTable."""
+    if isinstance(table, WalkTable):
+        tris = table.tris.reshape(bvh.num_leaves, LEAF_TRIS, 3, 4)
+
+        def leaf(li):
+            tv = tris[li]
+            return tv[..., 0, :3], tv[..., 1, :3], tv[..., 2, :3]
+
+        return lambda r: table.nodes[r].reshape(-1, 6, WIDE).transpose(1, 2), leaf
+    num_rows = bvh.node_boxes.shape[0]
+
+    def leaf(li):
+        tv = table[num_rows + li].reshape(-1, LEAF_TRIS, 3, 3)
+        return tv[:, :, 0], tv[:, :, 1] - tv[:, :, 0], tv[:, :, 2] - tv[:, :, 0]
+
+    return lambda r: table[r, : WIDE * 6].reshape(-1, WIDE, 6), leaf
+
+
+def _walk_chunk(bvh: BVH, table, rays: torch.Tensor, t_min: float):
     """Bitstack any-hit walk of one chunk of rays [10, n] -> (hit, inner
-    pops, leaf pops) per ray. Each step advances every unfinished ray by
-    one pop; finished rays leave the working set."""
+    pops, leaf pops, triangle tests [n, 4]) per ray. Each step advances
+    every unfinished ray by one pop; finished rays leave the working set.
+    The tests are those a walk that stops at a leaf's first hit runs,
+    counted by exit stage (``_ray_tri``)."""
     dev = rays.device
     n = rays.shape[1]
-    num_rows = bvh.node_boxes.shape[0]
+    node_boxes, leaf_tris = _table_readers(bvh, table)
     d_levels = bvh.num_levels
     lvl_off = torch.tensor(bvh.level_offsets, dtype=torch.int64, device=dev)
     below = torch.tensor([bvh.children_below(k) for k in range(d_levels)],
@@ -240,6 +278,7 @@ def _walk_chunk(bvh: BVH, table: torch.Tensor, rays: torch.Tensor, t_min: float)
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     inner_pops = torch.zeros(n, dtype=torch.int64, device=dev)
     leaf_pops = torch.zeros(n, dtype=torch.int64, device=dev)
+    tri_tests = torch.zeros((n, 4), dtype=torch.int64, device=dev)
     # the virtual super-root: the real root (idx 0, code D) is the sole
     # set bit of the trail, and the first pop descends into it
     root_mask = 1 << ((d_levels & 3) * 8)
@@ -277,12 +316,16 @@ def _walk_chunk(bvh: BVH, table: torch.Tensor, rays: torch.Tensor, t_min: float)
         li = idx[is_leaf]
         ray = act[is_leaf]
         leaf_pops.index_add_(0, ray, torch.ones_like(ray))
-        tv = table[num_rows + li].reshape(-1, LEAF_TRIS, 3, 3)
-        h16 = _ray_tri(o_all[ray][:, None], d_all[ray][:, None], t_min,
-                       tm_all[ray][:, None], tv[:, :, 0], tv[:, :, 1], tv[:, :, 2])
-        h16 = h16 & (lanes_t[None] < bvh.num_tris - li[:, None] * LEAF_TRIS)
+        h16, stage = _ray_tri(o_all[ray][:, None], d_all[ray][:, None], t_min,
+                              tm_all[ray][:, None], *leaf_tris(li))
+        real = lanes_t[None] < bvh.num_tris - li[:, None] * LEAF_TRIS
+        h16 = h16 & real
         found = h16.any(dim=1)
         hit[ray[found]] = True
+        first = torch.where(found, h16.to(torch.int32).argmax(dim=1), LEAF_TRIS)
+        ran = real & (lanes_t[None] <= first[:, None])
+        tri_tests.index_add_(0, ray, (torch.nn.functional.one_hot(stage, 4)
+                                      * ran[..., None]).sum(dim=1))
 
         # ---- inner pops: WIDE slab tests push a child mask
         inner = ~is_leaf
@@ -290,7 +333,7 @@ def _walk_chunk(bvh: BVH, table: torch.Tensor, rays: torch.Tensor, t_min: float)
         ray = act[inner]
         inner_pops.index_add_(0, ray, torch.ones_like(ray))
         clvl = lvl[inner] - 1
-        boxes = table[lvl_off[clvl] + ii, : WIDE * 6].reshape(-1, WIDE, 6)
+        boxes = node_boxes(lvl_off[clvl] + ii)
         h8 = _ray_aabb(o_all[ray][:, None], inv_all[ray][:, None],
                        tm_all[ray][:, None], boxes[..., :3], boxes[..., 3:])
         h8 = h8 & (lanes_w[None] < below[clvl][:, None] - ii[:, None] * WIDE)
@@ -304,25 +347,27 @@ def _walk_chunk(bvh: BVH, table: torch.Tensor, rays: torch.Tensor, t_min: float)
         keep = torch.ones_like(is_leaf)
         keep[torch.nonzero(is_leaf).reshape(-1)[found]] = False
         act, lvl, idx, tlo, thi = act[keep], lvl[keep], idx[keep], tlo[keep], thi[keep]
-    return hit, inner_pops, leaf_pops
+    return hit, inner_pops, leaf_pops, tri_tests
 
 
-def occlusion_walk(bvh: BVH, table: torch.Tensor, rays: torch.Tensor,
-                   t_min: float = 0.001):
+def occlusion_walk(bvh: BVH, table, rays: torch.Tensor, t_min: float = 0.001):
     """The plain any-hit walk over ray planes [10, N] (origin xyz, inverse
     direction xyz, direction xyz, t_max) and the unified node + leaf
-    table (ops/bvh_packet.py::packet_walk_table) -> (hit bool [N], inner
-    pops [N], leaf pops [N]), in chunks of RAY_CHUNK rays."""
+    table (ops/bvh_packet.py::packet_walk_table) or the kernel's
+    WalkTable -> (hit bool [N], inner pops [N], leaf pops [N], triangle
+    tests up to each leaf's first hit by exit stage [N, 4]), in chunks of
+    RAY_CHUNK rays. Both tables give the same results: the kernel's
+    table holds the same boxes and e1, e2 rounded as here."""
     n = rays.shape[1]
     outs = [_walk_chunk(bvh, table, rays[:, s : s + RAY_CHUNK], float(t_min))
             for s in range(0, n, RAY_CHUNK)]
     if not outs:
         z = torch.zeros(0, dtype=torch.int64, device=rays.device)
-        return z.bool(), z, z
+        return z.bool(), z, z, z.reshape(0, 4)
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def trace_occlusion_plain(bvh: BVH, table: torch.Tensor, rays: torch.Tensor,
+def trace_occlusion_plain(bvh: BVH, table, rays: torch.Tensor,
                           t_min: float = 0.001) -> torch.Tensor:
     """Hit bool [N] of the plain walk (kernel 5's plain version)."""
     return occlusion_walk(bvh, table, rays, t_min)[0]

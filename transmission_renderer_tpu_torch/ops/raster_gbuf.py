@@ -3,8 +3,10 @@
 Counterpart of ``transmission_renderer_tpu/ops/raster_pallas_gbuf.py``
 (pack_gbuf_payload, gather_gbuf_payload, rasterize_gbuffer_tiles,
 rasterize_gbuffer_pallas, gbuffer_from_channels). Kernel 1 of the port:
-``rasterize_gbuffer_tiles`` launches ``csrc/raster_gbuf.cu`` for CUDA
-tensors and runs ``rasterize_gbuffer_tiles_plain`` for CPU tensors.
+``rasterize_gbuffer_tiles`` launches ``csrc/raster_gbuf.cu`` (a plan of
+the work list ``gbuf_work_list`` describes, a depth race over it, a
+per-pixel resolve; one call of the handle) for CUDA tensors and runs
+``rasterize_gbuffer_tiles_plain`` for CPU tensors.
 
 Record layout (64 f32, 2 per 128-wide payload row): [0:9] signed
 adjugate rows, [9:12] clip z, [12:15] clip w, [15] tri id + CLASS_BIT *
@@ -15,6 +17,14 @@ Per pixel the raster keeps the first record (in sorted order) whose
 depth beats the seed depth and every earlier winner (reversed-Z
 GREATER), and interpolates the winner's attributes with the closed-form
 derivatives dA/dnx = (sum(a_i A_i) D - N sum(a_i)) / D^2 * 2/w.
+
+That winner is exactly the record of maximum depth among those that
+pass the seed and ``max_depth`` filters, ties going to the smallest
+record index. So a tile's run can be cut into segments of at most
+``SEG`` records, each raced on its own, and the segment winners merged
+by the 64-bit key (float bits of the depth << 32) | (2^32 - 1 - index),
+whose unsigned maximum is that winner; the kernel does so, and
+``rasterize_gbuffer_tiles_plain(segment=...)`` does it in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -37,6 +47,13 @@ RECS_PER_ROW = 128 // REC_F32
 CHUNK_ROWS = 16  # zero rows padded after the payload, as the reference
 CLASS_SHIFT = 22
 CLASS_BIT = 1 << CLASS_SHIFT
+# records per work item of the kernel's race: a run longer than this is
+# raced by several blocks at once (on the 1080p frame the race took 0.41,
+# 0.37, 0.33 and 0.32 ms at 256, 128, 64 and 32: PERF.md, Findings)
+SEG = 64
+# the kernel's plan sorts slots into this many buckets by segment count
+PLAN_BUCKETS = 64
+KEY_INDEX_MASK = 0xFFFFFFFF
 
 GBUF_CHANNELS = (
     "tri",  # int32
@@ -133,6 +150,124 @@ def _tile_runs(tile_start, tile_ids, num_classes, pass_class):
     return start.long(), (end - start).long()
 
 
+def _num_classes(tile_start, width, height) -> int:
+    return (tile_start.shape[0] - 1) // (-(-width // TILE_W) * -(-height // TILE_H))
+
+
+def _pixel_ndc(tile_ids, width, height):
+    """(nx, ny) [K, 8, 128]: the NDC centre of each pixel of the listed
+    tiles, in the kernel's arithmetic order."""
+    dev = tile_ids.device
+    tiles_x = -(-width // TILE_W)
+    tid = tile_ids.long()
+    cols = torch.arange(TILE_W, dtype=torch.float32, device=dev)
+    rows = torch.arange(TILE_H, dtype=torch.float32, device=dev)
+    tx = (tid % tiles_x).to(torch.float32)[:, None, None]
+    ty = (tid // tiles_x).to(torch.float32)[:, None, None]
+    nx = ((tx * TILE_W + cols[None, None, :]) + 0.5) * (2.0 / width) - 1.0
+    ny = ((ty * TILE_H + rows[None, :, None]) + 0.5) * (2.0 / height) - 1.0
+    shape = (tid.shape[0], TILE_H, TILE_W)
+    return nx.expand(shape), ny.expand(shape)
+
+
+def gbuf_work_list(count: torch.Tensor, segment: int = SEG):
+    """The race's work list in the compact form the kernel's plan builds,
+    from the run length of each tile slot [K]: (order [S] int64, the S
+    slots with a non-empty run by segment count, most first, counts of
+    PLAN_BUCKETS - 1 and more as one; seg_cum [S] int64, the running
+    count of segments in that order). Item i is segment i - seg_cum[p-1]
+    of slot order[p], for the p with seg_cum[p-1] <= i < seg_cum[p]. The
+    kernel orders the slots of one count as its atomics land, here in
+    slot order: the merge is a maximum, so the order is free."""
+    nseg = (count + segment - 1) // segment
+    bucket = torch.clamp(nseg, max=PLAN_BUCKETS - 1)
+    order = torch.argsort(bucket, descending=True, stable=True)[: int((nseg > 0).sum())]
+    return order, torch.cumsum(nseg[order], 0)
+
+
+def work_items(start: torch.Tensor, count: torch.Tensor, segment: int = SEG):
+    """The work list expanded, in the kernel's order: (slot, begin, end)
+    [n_items] int64, one item per segment of at most ``segment`` records
+    of a tile slot's run [begin, end)."""
+    order, seg_cum = gbuf_work_list(count, segment)
+    nseg = (count[order] + segment - 1) // segment
+    slot = torch.repeat_interleave(order, nseg)
+    first = torch.repeat_interleave(seg_cum - nseg, nseg)
+    j = torch.arange(slot.shape[0], device=count.device) - first
+    begin = start[slot] + j * segment
+    end = torch.minimum(begin + segment, start[slot] + count[slot])
+    return slot, begin, end
+
+
+def _edges(f, nx, ny):
+    """Edge functions of the record whose float i is f(i), at (nx, ny)."""
+    a0, b0, c0 = f(0), f(1), f(2)
+    a1, b1, c1 = f(3), f(4), f(5)
+    a2, b2, c2 = f(6), f(7), f(8)
+    return a0 * nx + b0 * ny + c0, a1 * nx + b1 * ny + c1, a2 * nx + b2 * ny + c2
+
+
+def _covers(f, e):
+    """Top-left coverage of the record whose float i is f(i) at the
+    pixels of its edge functions e."""
+    def covered(e, a, b):
+        tl = (a > 0) | ((a == 0) & (b > 0))
+        return (e > 0) | ((e == 0) & tl)
+
+    return covered(e[0], f(0), f(1)) & covered(e[1], f(3), f(4)) & covered(e[2], f(6), f(7))
+
+
+def _race_test(f, e, pass_class):
+    """(inside, depth, encoded tri id) of a record at the pixels of its
+    edge functions e: top-left coverage, w > 0, depth in [0, 1], class."""
+    e0, e1, e2 = e
+    inside = _covers(f, e)
+    w_int = e0 * f(12) + e1 * f(13) + e2 * f(14)
+    z_int = e0 * f(9) + e1 * f(10) + e2 * f(11)
+    depth = z_int / w_int
+    inside &= (w_int > 0) & (depth >= 0.0) & (depth <= 1.0)
+    tri_enc = f(15).to(torch.int32)
+    if pass_class is not None:
+        inside &= (tri_enc >> CLASS_SHIFT) == pass_class
+    return inside, depth, tri_enc
+
+
+_ATTR = ("pos_x", "pos_y", "pos_z", "nrm_x", "nrm_y", "nrm_z", "uv_u", "uv_v")
+_DX = ("dposdx_x", "dposdx_y", "dposdx_z", None, None, None, "duvdx_u", "duvdx_v")
+_DY = ("dposdy_x", "dposdy_y", "dposdy_z", None, None, None, "duvdy_u", "duvdy_v")
+
+
+def _interpolate(f, e, names, width, height) -> dict:
+    """The winner's attribute channels among ``names`` (perspective-correct
+    values and closed-form screen derivatives), tri, material and scale."""
+    e0, e1, e2 = e
+    a0, b0, a1, b1, a2, b2 = f(0), f(1), f(3), f(4), f(6), f(7)
+    d_sum = e0 + e1 + e2
+    inv_d = 1.0 / d_sum
+    a_sum = a0 + a1 + a2
+    b_sum = b0 + b1 + b2
+    inv_d2x = inv_d * inv_d * (2.0 / width)
+    inv_d2y = inv_d * inv_d * (2.0 / height)
+    out = {}
+    for q in range(8):
+        if _ATTR[q] not in names and (_DX[q] or "") not in names:
+            continue
+        A0, A1, A2 = f(16 + q), f(24 + q), f(32 + q)
+        n_attr = e0 * A0 + e1 * A1 + e2 * A2
+        if _ATTR[q] in names:
+            out[_ATTR[q]] = n_attr * inv_d
+        if _DX[q] is not None and _DX[q] in names:
+            na = a0 * A0 + a1 * A1 + a2 * A2
+            nb = b0 * A0 + b1 * A1 + b2 * A2
+            out[_DX[q]] = (na * d_sum - n_attr * a_sum) * inv_d2x
+            out[_DY[q]] = (nb * d_sum - n_attr * b_sum) * inv_d2y
+    tri_enc = f(15).to(torch.int32)
+    out["tri"] = torch.where(tri_enc < 0, tri_enc, tri_enc & (CLASS_BIT - 1))
+    out["material"] = f(40).to(torch.int32)
+    out["scale"] = f(41)
+    return out
+
+
 def rasterize_gbuffer_tiles_plain(
     payload: tuple,
     tile_ids: torch.Tensor,
@@ -145,27 +280,22 @@ def rasterize_gbuffer_tiles_plain(
     pass_class: int | None = None,
     pos_derivs: bool = True,
     uv_channels: bool = True,
+    segment: int | None = None,
 ) -> dict:
-    """The G-buffer raster in plain PyTorch: the depth race runs record
-    rank by record rank, vectorised over every tile whose run is that
-    long, in the kernel's arithmetic order."""
+    """The G-buffer raster in plain PyTorch, in the kernel's arithmetic
+    order. With ``segment`` None the depth race runs record rank by record
+    rank, vectorised over every tile whose run is that long, and
+    interpolates at every win; with ``segment`` set it races each segment
+    of at most that many records on its own, merges the segment winners
+    by their (depth, -index) key and interpolates each pixel's winner
+    once, as the kernel does. Both give the same channels bit for bit."""
     recs = payload[0].reshape(-1, REC_F32)
     dev = recs.device
     k_tiles = tile_ids.shape[0]
-    tiles_x = -(-width // TILE_W)
-    nc = (tile_start.shape[0] - 1) // (tiles_x * -(-height // TILE_H))
-    start, count = _tile_runs(tile_start, tile_ids, nc, pass_class)
-
-    tid = tile_ids.long()
-    cols = torch.arange(TILE_W, dtype=torch.float32, device=dev)
-    rows = torch.arange(TILE_H, dtype=torch.float32, device=dev)
-    tx = (tid % tiles_x).to(torch.float32)[:, None, None]
-    ty = (tid // tiles_x).to(torch.float32)[:, None, None]
-    nx = ((tx * TILE_W + cols[None, None, :]) + 0.5) * (2.0 / width) - 1.0
-    ny = ((ty * TILE_H + rows[None, :, None]) + 0.5) * (2.0 / height) - 1.0
+    start, count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
+                              pass_class)
+    nx, ny = _pixel_ndc(tile_ids, width, height)
     shape = (k_tiles, TILE_H, TILE_W)
-    nx = nx.expand(shape)
-    ny = ny.expand(shape)
 
     names = active_channels(pos_derivs, uv_channels)
     ch = {
@@ -178,85 +308,98 @@ def rasterize_gbuffer_tiles_plain(
     ch["scale"].fill_(1.0)
     if init_depth_tiles is not None:
         ch["depth"].copy_(init_depth_tiles)
+    if segment is not None:
+        key = _race_segments(recs, nx, ny, start, count, ch["depth"], max_depth_tiles,
+                             pass_class, segment)
+        won = key != 0
+        rw = recs[torch.where(won, KEY_INDEX_MASK - (key & KEY_INDEX_MASK), 0)]
+        f = lambda i: rw[..., i]  # noqa: E731
+        e = _edges(f, nx, ny)
+        vals = _interpolate(f, e, names, width, height)
+        vals["depth"] = _race_test(f, e, None)[1]
+        return {n: torch.where(won, vals[n], ch[n]) for n in names}
 
-    attr_names = ("pos_x", "pos_y", "pos_z", "nrm_x", "nrm_y", "nrm_z",
-                  "uv_u", "uv_v")
-    dx_names = ("dposdx_x", "dposdx_y", "dposdx_z", None, None, None,
-                "duvdx_u", "duvdx_v")
-    dy_names = ("dposdy_x", "dposdy_y", "dposdy_z", None, None, None,
-                "duvdy_u", "duvdy_v")
     n_max = int(count.max()) if k_tiles else 0
     for j in range(n_max):
         act = torch.nonzero(count > j)[:, 0]
         r = recs[start[act] + j]
-
-        def f(i):
-            return r[:, i][:, None, None]
-
-        a0, b0, c0 = f(0), f(1), f(2)
-        a1, b1, c1 = f(3), f(4), f(5)
-        a2, b2, c2 = f(6), f(7), f(8)
-        pnx, pny = nx[act], ny[act]
-        e0 = a0 * pnx + b0 * pny + c0
-        e1 = a1 * pnx + b1 * pny + c1
-        e2 = a2 * pnx + b2 * pny + c2
-
-        def covered(e, a, b):
-            tl = (a > 0) | ((a == 0) & (b > 0))
-            return (e > 0) | ((e == 0) & tl)
-
-        inside = covered(e0, a0, b0) & covered(e1, a1, b1) & covered(e2, a2, b2)
-        w_int = e0 * f(12) + e1 * f(13) + e2 * f(14)
-        z_int = e0 * f(9) + e1 * f(10) + e2 * f(11)
-        depth = z_int / w_int
-        inside &= (w_int > 0) & (depth >= 0.0) & (depth <= 1.0)
-        tri_enc = r[:, 15].to(torch.int32)[:, None, None]
-        if pass_class is not None:
-            inside &= (tri_enc >> CLASS_SHIFT) == pass_class
+        f = lambda i: r[:, i][:, None, None]  # noqa: E731
+        e = _edges(f, nx[act], ny[act])
+        inside, depth, _ = _race_test(f, e, pass_class)
         win = inside & (depth > ch["depth"][act])
         if max_depth_tiles is not None:
             win &= depth < max_depth_tiles[act]
-
-        d_sum = e0 + e1 + e2
-        inv_d = 1.0 / d_sum
-        a_sum = a0 + a1 + a2
-        b_sum = b0 + b1 + b2
-        inv_d2x = inv_d * inv_d * (2.0 / width)
-        inv_d2y = inv_d * inv_d * (2.0 / height)
-
-        def store(name, val):
+        vals = _interpolate(f, e, names, width, height)
+        vals["depth"] = depth  # stored last: the win mask read the old depth
+        for name, val in vals.items():
             ch[name][act] = torch.where(win, val, ch[name][act])
-
-        for q in range(8):
-            if attr_names[q] not in ch and (dx_names[q] or "") not in ch:
-                continue
-            A0, A1, A2 = f(16 + q), f(24 + q), f(32 + q)
-            n_attr = e0 * A0 + e1 * A1 + e2 * A2
-            if attr_names[q] in ch:
-                store(attr_names[q], n_attr * inv_d)
-            if dx_names[q] is not None and dx_names[q] in ch:
-                na = a0 * A0 + a1 * A1 + a2 * A2
-                nb = b0 * A0 + b1 * A1 + b2 * A2
-                store(dx_names[q], (na * d_sum - n_attr * a_sum) * inv_d2x)
-                store(dy_names[q], (nb * d_sum - n_attr * b_sum) * inv_d2y)
-        tri = torch.where(tri_enc < 0, tri_enc, tri_enc & (CLASS_BIT - 1))
-        store("tri", tri.expand_as(win))
-        store("material", r[:, 40].to(torch.int32)[:, None, None].expand_as(win))
-        store("scale", f(41).expand_as(win))
-        store("depth", depth)  # last: the win mask reads the old depth
     return ch
 
 
-def _rasterize_cuda(payload, tile_ids, tile_start, big_count, width, height,
-                    init_depth_tiles=None, max_depth_tiles=None,
-                    pass_class=None, pos_derivs=True, uv_channels=True) -> dict:
+def _race_segments(recs, nx, ny, start, count, seed, max_depth, pass_class, segment):
+    """Each work item's depth race from the seed, merged per pixel of each
+    tile slot into the key (float bits of depth + 0 << 32) | (2^32 - 1 -
+    record index) [K, 8, 128] int64; 0 where no record won. The + 0 turns
+    -0 into +0, so that the key orders as the depth does."""
+    slot, begin, end = work_items(start, count, segment)
+    best = seed[slot].clone()
+    best_i = torch.full(best.shape, -1, dtype=torch.int64, device=recs.device)
+    n_max = int((end - begin).max()) if slot.numel() else 0
+    for j in range(n_max):
+        act = torch.nonzero(end - begin > j)[:, 0]
+        idx = begin[act] + j
+        r = recs[idx]
+        f = lambda i: r[:, i][:, None, None]  # noqa: E731
+        inside, depth, _ = _race_test(f, _edges(f, nx[slot[act]], ny[slot[act]]), pass_class)
+        win = inside & (depth > best[act])
+        if max_depth is not None:
+            win &= depth < max_depth[slot[act]]
+        best[act] = torch.where(win, depth, best[act])
+        best_i[act] = torch.where(win, idx[:, None, None], best_i[act])
+    bits = (best + 0.0).view(torch.int32).to(torch.int64)
+    key = torch.where(best_i >= 0, (bits << 32) | (KEY_INDEX_MASK - best_i), 0)
+    merged = torch.zeros_like(seed, dtype=torch.int64)
+    return merged.scatter_reduce_(0, slot[:, None, None].expand_as(key), key, "amax")
+
+
+def covered_pairs(payload, tile_ids, tile_start, width, height, pass_class=None,
+                  chunk: int = 4096) -> int:
+    """The (pixel, record) pairs of one call whose record covers the pixel
+    (top-left rule, records of ``pass_class``): where the race goes on
+    from the edge functions to the depth, the rest of its work per pair."""
+    recs = payload[0].reshape(-1, REC_F32)
+    start, count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
+                              pass_class)
+    slot, rec, _ = work_items(start, count, 1)  # one item per (tile slot, record)
+    nx, ny = _pixel_ndc(tile_ids, width, height)
+    total = 0
+    for s in range(0, slot.shape[0], chunk):
+        sl = slot[s : s + chunk]
+        r = recs[rec[s : s + chunk]]
+        f = lambda i: r[:, i][:, None, None]  # noqa: E731
+        inside = _covers(f, _edges(f, nx[sl], ny[sl]))
+        if pass_class is not None:
+            inside &= (f(15).to(torch.int32) >> CLASS_SHIFT) == pass_class
+        total += int(inside.sum())
+    return total
+
+
+def _rasterize_cuda(*args, **kwargs) -> dict:
+    return _raster_launch(*args, **kwargs)[0]
+
+
+def _raster_launch(payload, tile_ids, tile_start, big_count, width, height,
+                   init_depth_tiles=None, max_depth_tiles=None,
+                   pass_class=None, pos_derivs=True, uv_channels=True):
+    """Launch kernel 1 -> (channels, the int64 buffer it worked in: the
+    per-pixel keys, then the plan, whose words the CUDA tests read)."""
     del big_count  # 0: checked by the wrapper
     rows = payload[0]
     dev = rows.device
     k_tiles = tile_ids.shape[0]
     tiles_x = -(-width // TILE_W)
-    nc = (tile_start.shape[0] - 1) // (tiles_x * -(-height // TILE_H))
-    kernels.check(rows, "payload rows", torch.float32, (rows.shape[0], 128))
+    nc = _num_classes(tile_start, width, height)
+    kernels.check(rows, "payload rows", torch.float32, (rows.shape[0], 128), align=16)
     kernels.check(tile_start, "tile_start", torch.int32, device=dev)
     kernels.check(tile_ids, "tile_ids", torch.int32, (k_tiles,), device=dev)
     if init_depth_tiles is None:
@@ -272,23 +415,26 @@ def _rasterize_cuda(payload, tile_ids, tile_start, big_count, width, height,
     tri = torch.empty(shape, dtype=torch.int32, device=dev)
     mat = torch.empty(shape, dtype=torch.int32, device=dev)
     fout = torch.empty((len(fnames),) + shape, dtype=torch.float32, device=dev)
+    # the merge key of every pixel (0: no winner), then the race's work
+    # list, which the kernel builds (2 + 2K int32 in K + 1 more words)
+    keys = torch.zeros(k_tiles * (TILE_H * TILE_W + 1) + 1, dtype=torch.int64, device=dev)
     fn = kernels.entry("trt_raster_gbuf", [
-        kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
-        kernels.VOIDP, kernels.INT, kernels.INT, kernels.INT, kernels.INT,
-        kernels.FLOAT, kernels.FLOAT, kernels.INT, kernels.INT, kernels.INT,
-        kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
+        kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
+        kernels.INT, kernels.INT, kernels.INT, kernels.INT, kernels.INT,
+        kernels.FLOAT, kernels.FLOAT, kernels.INT, kernels.INT, kernels.VOIDP,
+        kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
     ])
     kernels.launch(
         KERNEL, fn, kernels.ptr(rows), kernels.ptr(tile_start),
         kernels.ptr(tile_ids), kernels.ptr(init_depth_tiles),
         kernels.ptr(max_depth_tiles), k_tiles, tiles_x, nc,
-        -1 if pass_class is None else int(pass_class),
+        -1 if pass_class is None else int(pass_class), SEG,
         2.0 / width, 2.0 / height, int(pos_derivs), int(uv_channels),
-        len(fnames), kernels.ptr(tri), kernels.ptr(mat), kernels.ptr(fout),
+        kernels.ptr(keys), kernels.ptr(tri), kernels.ptr(mat), kernels.ptr(fout),
     )
     out = {"tri": tri, "material": mat}
     out.update({n: fout[i] for i, n in enumerate(fnames)})
-    return {n: out[n] for n in names}
+    return {n: out[n] for n in names}, keys
 
 
 KERNEL = kernels.KernelHandle(

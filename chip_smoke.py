@@ -28,7 +28,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    0 on every float plane); material tap <= 1e-6; shade <= 1e-5 on all
    but <= 0.05% of the pixels; transmission fetch <= 1e-6. Per raster
    call it prints the tiles, the records, the mean run and the busiest
-   tile's run (what kernel 1's work list spreads over the card).
+   tile's run (what kernel 1's work list spreads over the card); per
+   shade call the valid pixels, the lights per valid pixel and the share
+   of the warps holding a valid pixel whose valid pixels share one
+   cluster (the warps a warp-shared light list would serve).
 5. frame: one frame with the launch counts reset first; it must launch
    raster 2, tap 1, shade 2, fetch 1 times, give a finite image in
    [0, 1], report no capacity overflow, and match the stored golden
@@ -73,9 +76,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    capped at 2048 triangles a tile, the visibility raster, the tensor
    shade). (a) kernel 6's two calls of the frame through the kernel and
    its plain version, in the frame's XLA-raster order and again in
-   kernel-6 order: triangle ids equal, depth <= 1e-7, barycentrics
-   <= 1e-6; (b) with the counts reset, the frame launches raster_vis 2
-   and no other kernel; (c) its image is finite and in [0, 1], and its
+   kernel-6 order: triangle ids, depth and barycentrics equal bit for
+   bit (max abs error 0), and per call the tiles, the records, the mean
+   run and the busiest run; (b) with the counts reset, the frame
+   launches raster_vis 2 and no other kernel; (c) its image is finite
+   and in [0, 1], and its
    FrameDiagnostics equal the reference's for this frame
    (HD_VIS_DIAGNOSTICS: the busiest bin holds 5456 triangles against 2048,
    so overflowed() is true); (d) sRGB RMSE < 4e-3 against dragon_hd.png
@@ -92,9 +97,11 @@ the frame's calls, CUDA events queued behind a spin kernel so that they
 do not read the host's enqueue time, see device_ms; the host's time is
 printed beside it) and of its plain version, and the least time the card
 could take (bound_ms, from the bytes and operations of the frame's own
-calls, see kernel_work: the raster's depth test counted only where the
+calls, see kernel_work: the rasters' depth tests counted only where the
 record covers the pixel, the walk's triangle tests only up to a leaf's
-first hit and each up to where it leaves) with what bounds it. library_ms is null: no single PyTorch call computes any of these
+first hit and each up to where it leaves, the shade's work only on
+valid pixels and the lights each evaluates) with what bounds it.
+library_ms is null: no single PyTorch call computes any of these
 functions (PERF.md gives the reason for each).
 
 The second-to-last lines are the kernels JSON object and the card's name
@@ -327,23 +334,13 @@ def kernel_work(name: str, call, data=None) -> tuple:
         nbytes = quads.nbytes + rows.nbytes + uv.nbytes + lod.nbytes + 4 * lmax * m * 4
         return nbytes, m * lmax * 4 * 8 * 2
     if name == "shade":
-        from transmission_renderer_tpu_torch.render.shade_kernel import (
-            N_TRANS_OUT, pixel_clusters)
+        from transmission_renderer_tpu_torch.render.shade_kernel import shade_work
 
-        inp, spec = args
-        m = inp.mid.shape[0]
-        nbytes = sum(t.nbytes for t in inp if isinstance(t, torch.Tensor))
-        nbytes += (N_TRANS_OUT if spec.transmission else 3) * m * 4
-        blk = torch.arange(m, device=inp.mid.device) // 128
-        lane = (torch.arange(m, device=inp.mid.device) % 128).to(torch.float32)
-        cl = pixel_clusters(spec, inp.pix[6], inp.block_px0[blk].to(torch.float32) + lane,
-                            inp.block_py[blk].to(torch.float32)).long()
-        lights = int(torch.clamp(inp.counts[cl], max=inp.indices.shape[1]).sum())
-        # ~200 flops of material and view set-up per pixel and ~250 per
-        # light (the sun included) through basic_brdf; transmission adds
-        # the BTDF and the refraction ray (~350 + ~400 per light)
-        base, per = (350, 400) if spec.transmission else (200, 250)
-        return nbytes, m * base + (m + lights) * per
+        # counted on the call's own data: the planes each pixel needs, the
+        # set-up of valid pixels and the lights each one evaluates (only
+        # zeros written for the rest)
+        w = shade_work(*args)
+        return w.nbytes, w.ops
     if name == "transmission_fetch":
         pyramid, level_set, uv_x = args[0], args[1], args[2]
         m = uv_x.shape[0]
@@ -352,15 +349,22 @@ def kernel_work(name: str, call, data=None) -> tuple:
         # channels and a bilinear LUT tap of 2
         return 5 * m * 4 + levels + args[7].nbytes + 5 * m * 4, m * 80
     if name == "raster_vis":
-        recs, big, tile_ids, _, run_count, big_count, _, _, tile_w, tile_h = args
+        _, tile_ids, _, run_count, big_count, _, _, tile_w, tile_h = args
         k, px = tile_ids.numel(), tile_ids.numel() * tile_w * tile_h
         runs, nbig = int(run_count.sum()), int(big_count[0])
         seeded = kwargs.get("init_depth_tiles") is not None
         # each walked record (16 floats) read once, the tile list, the seed
         # depth, and the four [K, th, tw] outputs; per pixel and record
-        # three edge functions, the w and z sums, a divide and 8 tests
+        # (each tile's run and the big list) three edge functions and their
+        # coverage tests (15 operations), and where the record covers the
+        # pixel (data[0] such pairs) the w and z sums, a divide and 5 tests
+        # more (31 in all); per pixel with a winner (data[1]) its resolve
+        # once: the edge functions, the w and z sums, the depth's divide,
+        # the edge sum and the two barycentrics (28)
+        covered, winners = data
         nbytes = (runs + nbig) * 64 + k * 12 + 4 + px * 4 * (seeded + 4)
-        return nbytes, (runs + k * nbig) * tile_w * tile_h * 31
+        pairs = (runs + k * nbig) * tile_w * tile_h
+        return nbytes, (pairs - covered) * 15 + covered * 31 + winners * 28
     if name == "bvh_occlusion":
         _, table, rays, _ = args
         inner, tests = data
@@ -418,9 +422,9 @@ def parity(name, got, ref):
                    if not r.is_floating_point())
         return err, bad, bad == 0 and err == 0.0
     if name == "raster_vis":
-        # tri ids equal, depth 1e-7, barycentrics 1e-6
-        bad = sum(int((d > tol).sum()) for (d, _), tol in zip(diffs, (0.0, 1e-7, 1e-6, 1e-6)))
-        return err, bad, bad == 0
+        # tri ids, depth and both barycentrics equal (NaN where both are)
+        bad = sum(int((~((g == r) | (g.isnan() & r.isnan()))).sum()) for g, r in zip(got, ref))
+        return err, bad, bad == 0 and err == 0.0
     if name == "shade":
         # 1e-5 on all but 0.05% of the pixels (log2f/cosf ulps can move a
         # cluster-boundary pixel to its neighbouring z-slice)
@@ -433,15 +437,20 @@ def parity(name, got, ref):
     return err, bad, bad == 0
 
 
-def raster_runs(call) -> tuple:
-    """(tiles, records, mean run, busiest tile's run) of a kernel-1 call:
-    the run of each listed tile in its pass."""
+def raster_runs(name: str, call) -> tuple:
+    """(tiles, records, mean run, busiest tile's run) of a raster call:
+    the run of each listed tile in its pass (kernel 1), or the run each
+    tile walks besides the big list (kernel 6)."""
     from transmission_renderer_tpu_torch.ops.raster_gbuf import _num_classes, _tile_runs
 
     args, kwargs = call
-    _, tile_ids, tile_start, _, width, height = args
-    count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
-                       kwargs.get("pass_class"))[1]
+    if name == "raster_vis":
+        count = args[3]
+    else:
+        _, tile_ids, tile_start, _, width, height = args
+        count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
+                           kwargs.get("pass_class"))[1]
+    tile_ids = args[1]
     recs = int(count.sum())
     return tile_ids.numel(), recs, recs / max(tile_ids.numel(), 1), int(count.max())
 
@@ -450,6 +459,7 @@ def check_parity(handles, calls, max_err, tag: str) -> None:
     """Replay every recorded call through the kernel and the plain
     version; raise on a disagreement."""
     import torch
+    from transmission_renderer_tpu_torch.render.shade_kernel import shade_work
 
     for h in handles:
         require(len(calls[h.name]) > 0, f"{h.name}: the frame never called it")
@@ -460,10 +470,16 @@ def check_parity(handles, calls, max_err, tag: str) -> None:
                 f"{'ok' if ok else 'FAIL'}")
             max_err[h.name] = max(max_err.get(h.name, 0.0), err)
             require(ok, f"{h.name}: kernel disagrees with its plain version")
-            if h.name == "raster_gbuf":
-                tiles, recs, mean, busiest = raster_runs(call)
-                log(f"  runs {tag}raster_gbuf[{i}]: {tiles} tiles, {recs} records, mean "
+            if h.name in ("raster_gbuf", "raster_vis"):
+                tiles, recs, mean, busiest = raster_runs(h.name, call)
+                log(f"  runs {tag}{h.name}[{i}]: {tiles} tiles, {recs} records, mean "
                     f"{mean:.1f} a tile, busiest tile {busiest}")
+            if h.name == "shade":
+                w = shade_work(*call[0])
+                log(f"  pixels {tag}shade[{i}]: {w.valid} valid of {call[0][0].mid.numel()}, "
+                    f"{w.lights / max(w.valid, 1):.3f} lights per valid pixel, "
+                    f"{w.uniform_warps} of {w.warps} warps holding a valid pixel share one "
+                    f"cluster ({w.uniform_warps / max(w.warps, 1):.3f})")
 
 
 def check_occlusion(calls, n_kinds: int, tag: str, tri_vertices, positions) -> list:
@@ -702,7 +718,8 @@ def main() -> int:
     log(f"build: {'compiled' if info.built else 'up to date'} in "
         f"{info.seconds:.2f} s -> {os.path.relpath(info.path, ROOT)}")
     for line in info.log.splitlines():
-        if "registers" in line or "error" in line.lower() or "spill" in line:
+        if any(s in line for s in ("Compiling entry", "registers", "spill")) or \
+                "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
 
     # ---- 3. scene --------------------------------------------------------------
@@ -830,7 +847,7 @@ def main() -> int:
             per_call = [(raster_gbuf.covered_pairs(*a[:3], *a[4:6], kw.get("pass_class")),
                          int((h.replay((a, kw), True)["tri"] >= 0).sum()))
                         for a, kw in rt_calls[h.name]]
-            pairs = [raster_runs(c)[1] * 1024 for c in rt_calls[h.name]]
+            pairs = [raster_runs(h.name, c)[1] * 1024 for c in rt_calls[h.name]]
             log(f"rt kernel raster_gbuf per call: pixel-record pairs {pairs}, where the "
                 f"record covers the pixel {[p[0] for p in per_call]}, pixels with a winner "
                 f"{[p[1] for p in per_call]}")
@@ -955,7 +972,15 @@ def main() -> int:
     h = raster_vis.KERNEL
     k_ms, h_ms = kernel_ms(h, vis_calls[h.name])
     p_ms = plain_ms(h, vis_calls[h.name])
-    works = [kernel_work(h.name, c) for c in vis_calls[h.name]]
+    # covering pixel-record pairs, pixels with a winner
+    per_call = [(raster_vis.covered_pairs(*a, pass_class=kw.get("pass_class")),
+                 int((h.replay((a, kw), True)[0] >= 0).sum())) for a, kw in vis_calls[h.name]]
+    pairs = [(int(a[3].sum()) + a[1].numel() * int(a[4][0])) * a[7] * a[8]
+             for a, _ in vis_calls[h.name]]
+    log(f"vis kernel raster_vis per call: pixel-record pairs {pairs}, where the record "
+        f"covers the pixel {[p[0] for p in per_call]}, pixels with a winner "
+        f"{[p[1] for p in per_call]}")
+    works = [kernel_work(h.name, c, p) for c, p in zip(vis_calls[h.name], per_call)]
     b_ms, b_by = bound_of(works)
     log(f"vis kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame on the device (host "
         f"{h_ms:.3f}), plain {p_ms:.3f} "

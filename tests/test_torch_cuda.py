@@ -377,15 +377,14 @@ def _vis_scene(seed, n_tris=400, w=256, h=64):
     return (ph @ pv.T).astype(np.float32), tris
 
 
-def _vis_compare(got, ref):
-    """Triangle ids equal, depth within 1e-7, barycentrics within 1e-6."""
-    g = [t.cpu().numpy() for t in got]
-    r = [t.cpu().numpy() for t in ref]
-    np.testing.assert_array_equal(g[0], r[0])
-    np.testing.assert_allclose(g[1], r[1], atol=1e-7, rtol=0)
-    for a, b in zip(g[2:], r[2:]):
-        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
-    assert (r[0] >= 0).sum() > 1000
+def _vis_compare(got, ref, min_covered=1000):
+    """Triangle ids, depth and barycentrics equal bit for bit."""
+    for name, g, r in zip(("tri", "depth", "b1", "b2"), got, ref):
+        g, r = g.cpu(), r.cpu()
+        if r.is_floating_point():
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r), name
+    assert int((ref[0] >= 0).sum()) > min_covered
 
 
 @pytest.mark.parametrize("case", ["kernel6", "kernel6-class0", "kernel6-class1",
@@ -393,8 +392,9 @@ def _vis_compare(got, ref):
 def test_raster_vis_matches_plain(case):
     """Kernel 6 launched through rasterize_pallas (kernel-6 order) and
     rasterize (XLA-raster order) on CUDA tensors vs the plain version on
-    the same tensors on the CPU: class-filtered passes, 32x8 tiles, bins
-    cut below the busiest tiles' counts, and a seeded depth race."""
+    the same tensors on the CPU, bit for bit: class-filtered passes, 32x8
+    tiles, bins cut below the busiest tiles' counts, and a seeded depth
+    race."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
     from transmission_renderer_tpu_torch.ops import raster, raster_vis
@@ -496,3 +496,164 @@ def test_vis_frame_raster_matches_plain(vis_captured):
             call = (args, dict(kwargs, xla_order=order))
             _vis_compare(raster_vis.KERNEL.replay(call, True),
                          raster_vis.KERNEL.replay(call, False))
+
+
+def _vis_call(dev, case, n_tris=400):
+    """raster_vis arguments and keywords of a crafted case on ``dev``, over
+    every 8x128 tile of a 256x64 frame of _vis_scene (the floor in the big
+    list): "twins" (every triangle twice, coplanar: depth ties inside a
+    run and across segments), "big-vs-run" (the floor's copies, larger
+    ids, as the big list and the floor itself inside every run: the two
+    orders keep different triangles on the ties), "seeded" (a seed at
+    exactly the front depths on half the pixels), "neg-zero" (40 twin
+    pairs at depth -0 and +0 on the same pixels, raced from a seed of -1),
+    "class1" (class-flagged records, one pass), "long" (runs of several
+    hundred records, more than one segment)."""
+    from transmission_renderer_tpu_torch.ops import raster, raster_vis
+
+    w, h = 256, 64
+    clip, tris = _vis_scene(7, 1200 if case == "long" else n_tris)
+    if case in ("twins", "neg-zero"):
+        tris = np.concatenate([tris, tris])
+    if case == "big-vs-run":
+        tris = np.concatenate([tris, tris[:2]])
+    cls = None
+    if case == "class1":
+        cls = torch.from_numpy(np.random.default_rng(5).integers(0, 2, len(tris))
+                               .astype(np.int32)).to(dev)
+    setup = raster.setup_triangles(torch.from_numpy(clip).to(dev), torch.from_numpy(tris).to(dev),
+                                   torch.ones(len(tris), dtype=torch.bool, device=dev),
+                                   w, h, 128, 8)
+    bins = raster.bin_triangles_materialized(setup, 2, 8, 8, 4096, 16)
+    payload = raster_vis.gather_bin_payload(setup, bins, cls)
+    ids = torch.arange(16, dtype=torch.int32, device=dev)
+    start = bins.tile_start[:16].contiguous()
+    count = bins.tile_tri_count.to(torch.int32).contiguous()
+    big_count = bins.big_tri_count.to(torch.int32).reshape(1)
+    kw = {"pass_class": 1} if case == "class1" else {}
+    if case == "big-vs-run":
+        t = len(tris) - 2
+        lists = [torch.cat([payload[0][s : s + c // 2], payload[2][:2],
+                            payload[0][s + c // 2 : s + c]])
+                 for s, c in zip(start.tolist(), count.tolist())]
+        count = torch.tensor([len(r) for r in lists], dtype=torch.int32, device=dev)
+        start = (torch.cumsum(count, 0) - count).to(torch.int32)
+        payload = (torch.cat(lists), payload[2][[t, t + 1]].contiguous(), payload[2])
+        big_count = torch.tensor([2], dtype=torch.int32, device=dev)
+    if case == "neg-zero":
+        ext = payload[2].clone()
+        n = len(tris) // 2
+        ext[:40, 9:12] = -0.0
+        ext[n : n + 40, 9:12] = 0.0
+        rid = lambda r: torch.where(r[:, 15] < 0, ext.shape[0] - 1,  # noqa: E731
+                                    r[:, 15].long() & (raster_vis.CLASS_BIT - 1))
+        payload = (ext[rid(payload[0])].contiguous(), ext[rid(payload[1])].contiguous(), ext)
+        kw = {"init_depth_tiles": torch.full((16, 8, 128), -1.0, device=dev)}
+    args = (payload, ids, start, count, big_count, w, h, 128, 8)
+    if case == "seeded":
+        front = raster_vis.raster_vis_plain(*_to_cpu(args, {})[0])[1]
+        rng = np.random.default_rng(4)
+        half = torch.from_numpy(rng.uniform(size=tuple(front.shape)) < 0.5)
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(front.shape)).astype(np.float32))
+        kw = {"init_depth_tiles": torch.where(half, front, front * scale).contiguous().to(dev)}
+    return args, kw
+
+
+def _to_cpu(args, kw):
+    cpu = lambda a: (tuple(p.cpu() for p in a) if isinstance(a, tuple)  # noqa: E731
+                     else a.cpu() if isinstance(a, torch.Tensor) else a)
+    return tuple(cpu(a) for a in args), {k: cpu(v) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("xla_order", [True, False])
+@pytest.mark.parametrize("case", ["twins", "big-vs-run", "seeded", "neg-zero", "class1",
+                                  "long"])
+def test_raster_vis_race_resolve_ties_match_plain(case, xla_order):
+    """Kernel 6's race and resolve on crafted ties, in both walk orders,
+    against the plain sequential walk on the same tensors on the CPU: tri,
+    depth (its sign bit too), b1 and b2 equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_vis
+
+    args, kw = _vis_call(torch.device("cuda"), case)
+    before = raster_vis.KERNEL.launches
+    got = raster_vis.KERNEL(True, *args, xla_order=xla_order, **kw)
+    torch.cuda.synchronize()
+    assert raster_vis.KERNEL.launches == before + 1
+    cargs, ckw = _to_cpu(args, kw)
+    ref = raster_vis.raster_vis_plain(*cargs, xla_order=xla_order, **ckw)
+    _vis_compare(got, ref, min_covered=300)
+    if case == "neg-zero":
+        assert bool((ref[1].view(torch.int32) == -2**31).any())
+    if case == "long":
+        assert int(args[3].max()) > raster_vis.SEG
+
+
+@pytest.mark.parametrize("case", ["twins", "class1", "1280-slots"])
+def test_raster_vis_plan_matches_work_list(case):
+    """The work list kernel 6's plan kernel leaves after a call (the words
+    after the per-pixel keys) against gbuf_work_list over list_lengths
+    (each tile's big list and run): the same slots, the same segment-count
+    buckets in order, the running count of that order, every item pulled;
+    1280 slots take the plan's scan past one 1024-thread pass, and their
+    outputs equal the 16-slot call's, repeated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_gbuf, raster_vis
+
+    dev = torch.device("cuda")
+    args, kw = _vis_call(dev, "class1" if case == "class1" else "twins")
+    if case == "1280-slots":
+        args = (args[0], args[1].repeat(80), args[2].repeat(80), args[3].repeat(80)) + args[4:]
+    out, keys = raster_vis._raster_vis_launch(*args, **kw)
+    torch.cuda.synchronize()
+    k = args[1].numel()
+    plan = keys[k * 1024:].cpu().view(torch.int32).long()
+    lengths = raster_vis.list_lengths(args[3].cpu(), args[4].cpu())
+    order, seg_cum = raster_gbuf.gbuf_work_list(lengths, raster_vis.SEG)
+    n_slots = int(plan[1])
+    got_order, got_cum = plan[2 : 2 + n_slots], plan[2 + k : 2 + k + n_slots]
+    assert n_slots == order.numel() > 0
+    assert sorted(got_order.tolist()) == sorted(order.tolist())
+    nseg = (lengths + raster_vis.SEG - 1) // raster_vis.SEG
+    bucket = torch.clamp(nseg, max=raster_gbuf.PLAN_BUCKETS - 1)
+    assert torch.equal(bucket[got_order], bucket[order])
+    assert torch.equal(got_cum, torch.cumsum(nseg[got_order], 0))
+    assert int(plan[0]) >= int(seg_cum[-1])  # every item pulled, then one miss a block
+    if case == "1280-slots":
+        small = raster_vis.KERNEL(True, *_vis_call(dev, "twins")[0])
+        for g, r in zip(out, small):
+            assert torch.equal(g, r.repeat(80, 1, 1))
+    else:
+        cargs, ckw = _to_cpu(args, kw)
+        _vis_compare(out, raster_vis.raster_vis_plain(*cargs, **ckw), min_covered=300)
+
+
+def test_shade_sky_spot_and_mixed_clusters_match_plain(captured):
+    """Kernel 3 on a frame's opaque call with sky pixels (which only write
+    zeros), a spot light that valid pixels evaluate, and warps whose valid
+    pixels span several clusters beside warps on one cluster: within the
+    shade tolerance of chip_smoke.py (1e-5 on all but 0.05% of the
+    pixels), and exactly 0 on the sky."""
+    from transmission_renderer_tpu_torch.render import shade_kernel
+
+    _, _, out = captured
+    (inp, spec), kw = out["shade"][0][0]
+    w = shade_kernel.shade_work(inp, spec)
+    assert 0 < w.valid < inp.mid.numel()
+    assert 0 < w.uniform_warps < w.warps
+    m = inp.mid.numel()
+    blk = torch.arange(m, device=inp.mid.device) // 128
+    lane = (torch.arange(m, device=inp.mid.device) % 128).to(torch.float32)
+    cl = shade_kernel.pixel_clusters(spec, inp.pix[6], inp.block_px0[blk].float() + lane,
+                                     inp.block_py[blk].float()).long()
+    slot = torch.arange(inp.indices.shape[1], device=cl.device)
+    listed = (slot[None] < inp.counts[cl][:, None]) & (inp.indices[cl] == 2)
+    assert bool((listed.any(dim=1) & (inp.pix[7] > 0.5)).any())  # the spot (light 2)
+    got = torch.stack(shade_kernel.KERNEL.replay(((inp, spec), kw), True)).cpu().numpy()
+    ref = torch.stack(shade_kernel.KERNEL.replay(((inp, spec), kw), False)).cpu().numpy()
+    bad = ~np.isclose(got, ref, atol=1e-5, rtol=0, equal_nan=True)
+    assert bad.any(axis=0).sum() <= 5e-4 * got.shape[1]
+    sky = (inp.pix[7] <= 0.5).cpu().numpy()
+    assert (got[:, sky] == 0).all()

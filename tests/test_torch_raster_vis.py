@@ -20,7 +20,7 @@ from transmission_renderer_tpu.ops import raster as jraster
 from transmission_renderer_tpu.ops import raster_pallas as jpallas
 from transmission_renderer_tpu.scene.camera import look_at_rh, perspective_matrix_reversed
 from transmission_renderer_tpu_torch import bridge
-from transmission_renderer_tpu_torch.ops import raster, raster_vis
+from transmission_renderer_tpu_torch.ops import raster, raster_gbuf, raster_vis
 
 # torch runs single-threaded here: the suite runs in several worker
 # processes at once, and oversubscribed OpenMP threads stall each other
@@ -200,3 +200,234 @@ def test_bridge_carries_vis_buffer_and_bins():
     assert bins.tile_tri_ids.dtype == torch.int32
     _compare(vis, ref)
     _compare(raster_vis.rasterize(setup, bins, W, H, 128, 8), ref)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's decomposition: (tile, list segment) races merged by the
+# (depth, -id) key, then one resolve per pixel
+# ---------------------------------------------------------------------------
+
+def _port_bins(clip, tris, cls=None):
+    """Port-only setup, materialised bins (8x128 tiles, big list of up to
+    16) and payload of a scene."""
+    setup = raster.setup_triangles(_t(clip), _t(tris), torch.ones(len(tris), dtype=torch.bool),
+                                   W, H, 128, 8)
+    bins = raster.bin_triangles_materialized(setup, W // 128, H // 8, 8, 4096, 16)
+    return setup, bins, raster_vis.gather_bin_payload(
+        setup, bins, None if cls is None else _t(cls))
+
+
+def _call(payload, bins):
+    """raster_vis arguments over every tile: its whole binned run, and the
+    big list."""
+    ids = torch.arange((W // 128) * (H // 8), dtype=torch.int32)
+    tid = ids.long()
+    return (payload, ids, bins.tile_start[tid].contiguous(), bins.tile_tri_count[tid].contiguous(),
+            bins.big_tri_count.to(torch.int32).reshape(1))
+
+
+def _crowd(seed, n_tris):
+    """Small triangles crowded in front of a camera close to them (most
+    tiles' runs hold dozens to hundreds of records)."""
+    rng = np.random.default_rng(seed)
+    pv = perspective_matrix_reversed(W, H) @ look_at_rh(
+        (0.0, 1.0, 0.0), (0.0, 0.5, -3.0), (0, 1, 0))
+    centres = rng.uniform(-1.5, 1.5, (n_tris, 1, 3)) * [1.5, 0.4, 1.0] + [0.0, 0.9, -3.0]
+    pts = (centres + rng.uniform(-0.3, 0.3, (n_tris, 3, 3))).reshape(-1, 3)
+    tris = np.arange(3 * n_tris, dtype=np.int32).reshape(-1, 3)
+    return _project(pts.astype(np.float32), pv), tris
+
+
+def _twins(clip, tris):
+    """Every triangle twice (coplanar copies, ids t and t + n)."""
+    return clip, np.concatenate([tris, tris])
+
+
+def _regathered(ext, args):
+    """The call's lists regathered from modified rows by triangle id."""
+    payload, ids, start, count, big_count = args
+    recs, big, _ = payload
+    rid = lambda r: torch.where(r[:, 15] < 0, ext.shape[0] - 1,  # noqa: E731
+                                r[:, 15].to(torch.int64) & (raster_vis.CLASS_BIT - 1))
+    return (ext[rid(recs)].contiguous(), ext[rid(big)].contiguous(), ext), ids, start, count, \
+        big_count
+
+
+def _decomposition_case(case):
+    """(raster_vis arguments, keyword arguments) of one case."""
+    if case == "long_run":
+        _, bins, payload = _port_bins(*_crowd(8, 2000))
+        return _call(payload, bins), {}
+    if case in ("twins", "neg_zero"):
+        _, bins, payload = _port_bins(*_twins(*_crowd(7, 150)))
+        args = _call(payload, bins)
+        if case == "twins":
+            return args, {}
+        # the first 40 twin pairs at depth -0 and +0 on the same pixels
+        # (z all -0 against all +0), raced from a seed of -1 so that they
+        # can win: -0 and +0 tie under the float compare
+        ext = payload[2].clone()
+        n = (ext.shape[0] - 1) // 2
+        ext[:40, 9:12] = -0.0
+        ext[n : n + 40, 9:12] = 0.0
+        seed = torch.full((args[1].numel(), 8, 128), -1.0)
+        return _regathered(ext, args), {"init_depth_tiles": seed}
+    if case == "big_vs_run":
+        # the floor's two triangles in every tile's run, their coplanar
+        # copies (larger ids) as the big list: kernel-6 order walks the
+        # copies first and keeps them on the ties, XLA order keeps the
+        # smaller ids
+        clip, tris = _big_scene()
+        setup, bins, payload = _port_bins(clip, np.concatenate([tris, tris[:2]]))
+        payload, ids, start, count, _ = _call(payload, bins)
+        t = len(tris)
+        lists = [torch.cat([payload[0][s : s + c // 2], payload[2][:2],
+                            payload[0][s + c // 2 : s + c]])
+                 for s, c in zip(start.tolist(), count.tolist())]
+        count = torch.tensor([len(r) for r in lists], dtype=torch.int32)
+        return ((torch.cat(lists), payload[2][[t, t + 1]].contiguous(), payload[2]), ids,
+                (torch.cumsum(count, 0) - count).to(torch.int32), count,
+                torch.tensor([2], dtype=torch.int32)), {}
+    if case in ("class0", "class1"):
+        clip, tris = _crowd(7, 150)
+        cls = np.random.default_rng(5).integers(0, 2, len(tris)).astype(np.int32)
+        _, bins, payload = _port_bins(clip, tris, cls)
+        return _call(payload, bins), {"pass_class": int(case[-1])}
+    scene = {"random": SCENES["random"], "dense": lambda: _crowd(7, 150),
+             "seeded": _big_scene}[case]
+    _, bins, payload = _port_bins(*scene())
+    args = _call(payload, bins)
+    if case != "seeded":
+        return args, {}
+    # a seed at exactly the front depths on half the pixels (a record
+    # there ties it and must lose), scaled elsewhere
+    front = raster_vis.raster_vis_plain(*args, W, H, 128, 8)[1]
+    rng = np.random.default_rng(4)
+    half = torch.from_numpy(rng.uniform(size=front.shape) < 0.5)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, front.shape).astype(np.float32))
+    return args, {"init_depth_tiles": torch.where(half, front, front * scale).contiguous()}
+
+
+_VIS_SEQUENTIAL = {}
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+@pytest.mark.parametrize("xla_order", [True, False])
+@pytest.mark.parametrize("segment", [1, 3, 32])
+@pytest.mark.parametrize("case", ["random", "dense", "twins", "big_vs_run", "seeded",
+                                  "neg_zero", "class0", "class1", "long_run"])
+def test_segmented_race_equals_sequential(case, segment, xla_order):
+    """tri, depth, b1 and b2 of the segmented race (the kernel's
+    decomposition) equal the sequential walk's bit for bit, in both walk
+    orders: exact depth ties inside a run, across segments and between the
+    big list and the run, seeds at exactly a record's depth, records at -0
+    and +0 depth, class-filtered passes and a run of several hundred
+    records."""
+    args, kw = _decomposition_case(case)
+    key = (case, xla_order)
+    if key not in _VIS_SEQUENTIAL:
+        _VIS_SEQUENTIAL[key] = raster_vis.raster_vis_plain(*args, W, H, 128, 8,
+                                                           xla_order=xla_order, **kw)
+    ref = _VIS_SEQUENTIAL[key]
+    got = raster_vis.raster_vis_plain(*args, W, H, 128, 8, xla_order=xla_order,
+                                      segment=segment, **kw)
+    for name, g, r in zip(("tri", "depth", "b1", "b2"), got, ref):
+        assert g.dtype == r.dtype, name
+        assert torch.equal(_bits(g), _bits(r)), name
+    assert int((ref[0] >= 0).sum()) > 500
+    if case == "long_run":
+        assert int(args[3].max()) >= 300
+    if case == "big_vs_run" and segment == 1:
+        other = raster_vis.raster_vis_plain(*args, W, H, 128, 8, xla_order=not xla_order)
+        assert bool((other[0] != ref[0]).any())  # the orders keep different triangles
+    if case == "neg_zero":
+        assert bool((ref[1].view(torch.int32) == -2**31).any())  # a winner at -0
+
+
+def test_vis_work_list_walks_every_record_once_per_tile():
+    """Kernel 6's work items over each tile's list (the big list, then its
+    run): every big record and every run record of a tile in exactly one
+    item of that tile, items of 1..SEG records, the lists of most segments
+    first."""
+    rng = np.random.default_rng(1)
+    count = torch.from_numpy(rng.integers(0, 300, 30).astype(np.int32))
+    count[::5] = 0
+    count[4] = 2048
+    start = torch.from_numpy(rng.integers(0, 9000, 30).astype(np.int32))
+    big_count = torch.tensor([5], dtype=torch.int32)
+    lengths = raster_vis.list_lengths(count, big_count)
+    slot, begin, end = raster_gbuf.work_items(torch.zeros_like(lengths), lengths,
+                                              raster_vis.SEG)
+    n = end - begin
+    assert bool(((n >= 1) & (n <= raster_vis.SEG)).all())
+    walked = {}
+    for s, b, e in zip(slot.tolist(), begin.tolist(), end.tolist()):
+        for v in range(b, e):
+            src = ("big", v) if v < 5 else ("run", int(start[s]) + v - 5)
+            walked.setdefault(s, []).append(src)
+    for k in range(30):
+        want = [("big", j) for j in range(5)] + [("run", int(start[k]) + j)
+                                                  for j in range(int(count[k]))]
+        assert sorted(walked[k]) == sorted(want)
+    nseg = -(-lengths[slot] // raster_vis.SEG)
+    assert bool((torch.diff(torch.clamp(nseg, max=raster_gbuf.PLAN_BUCKETS - 1)) <= 0).all())
+
+
+def test_vis_covered_pairs_counts_the_covering_records():
+    """covered_pairs (the pairs whose depth test kernel 6's bound counts)
+    equals a brute-force numpy count on both raster calls of a 128x72
+    visibility-buffer frame of the dragon: per tile, per record of its
+    list (the big list and its run), the pixels whose three edge
+    functions, contracted as the kernel computes them, pass the top-left
+    rule."""
+    from transmission_renderer_tpu_torch.models.procedural import build_dragon_scene
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+    from transmission_renderer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=128, height=72, use_pallas_raster=False)
+    scene, dl, flags = build_dragon_scene(stacks=24, sectors=48).finish_bundle(device="cpu")
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
+    rig.camera.pitch = -0.25
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device="cpu")
+    lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
+    raster_vis.KERNEL.recorder = []
+    try:
+        render_frame(scene, dl, params, lights, cfg, flags)
+        calls = raster_vis.KERNEL.recorder
+    finally:
+        raster_vis.KERNEL.recorder = None
+    assert len(calls) == 2
+    for args, kw in calls:
+        payload, ids, start, count, big_count, w, h, tw, th = args
+        got = raster_vis.covered_pairs(*args, pass_class=kw.get("pass_class"))
+        recs, big = payload[0].numpy(), payload[1].numpy()
+        nbig = int(big_count[0])
+        want = pairs = 0
+        for k, tile in enumerate(ids.tolist()):
+            tx, ty = tile % -(-w // tw), tile // -(-w // tw)
+            nx = ((np.float32(tx * tw) + np.arange(tw, dtype=np.float32)) + np.float32(0.5)) \
+                * np.float32(2.0 / w) - np.float32(1.0)
+            ny = ((np.float32(ty * th) + np.arange(th, dtype=np.float32)) + np.float32(0.5)) \
+                * np.float32(2.0 / h) - np.float32(1.0)
+            nx, ny = np.broadcast_to(nx[None], (th, tw)), np.broadcast_to(ny[:, None], (th, tw))
+            lst = np.concatenate([big[:nbig], recs[int(start[k]) : int(start[k] + count[k])]])
+            for r in lst:
+                if int(r[15]) < 0:
+                    continue
+                pairs += nx.size
+                cov = np.ones(nx.shape, bool)
+                for j in range(3):
+                    a, b, c = r[3 * j : 3 * j + 3]
+                    e = (np.float64(a) * nx.astype(np.float64)
+                         + (b * ny).astype(np.float64)).astype(np.float32) + c
+                    cov &= (e > 0) | ((e == 0) & ((a > 0) | ((a == 0) & (b > 0))))
+                want += int(cov.sum())
+        assert got == want
+        assert 0 < want < 0.5 * pairs

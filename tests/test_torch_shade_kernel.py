@@ -322,3 +322,74 @@ def test_shade_gate_matches_reference():
     for n_mat, w in ((5, 256), (200, 256), (5, 200)):
         assert shade_kernel.pallas_shade_supported(pctx, n_mat, w) == \
             jshade.pallas_shade_supported(jctx, n_mat, w)
+
+
+def _crafted_shade_inputs():
+    """Two 128-pixel row blocks on three cluster columns (x 0-47, 48-95,
+    96-127 of the first block), one z-slice: cluster 0 lists lights 0 and
+    1, cluster 1 light 1, cluster 2 none; light 1 is a spot. The first 10
+    pixels and the whole second block are invalid (sky). Material 0 (x <
+    64) holds a diffuse texture, material 1 none; the diffuse slot is the
+    only one in use."""
+    m = 256
+    pix = torch.zeros((len(shade_kernel.PIX_BASE), m))
+    pix[0:3] = torch.linspace(-1.0, 1.0, m)  # positions
+    pix[5] = 1.0  # normal +z
+    pix[6] = 0.5  # depth
+    pix[7, 10:128] = 1.0  # valid
+    pix[8] = 1.0
+    mat = torch.zeros((2, shade_kernel.MAT_COLS))
+    mat[:, shade_kernel._C_TID0:] = -1.0
+    mat[0, shade_kernel._C_TID0] = 0.0  # diffuse texture, layer 0
+    mat[:, shade_kernel._C_IOR] = 1.5
+    mat[:, shade_kernel._C_ROUGHNESS] = 0.5
+    mat[:, shade_kernel._C_DIFFUSE : shade_kernel._C_DIFFUSE + 3] = 0.5
+    mat[:, shade_kernel._C_SPEC_FACTOR] = 1.0
+    mat[:, shade_kernel._C_SPEC_COLOUR : shade_kernel._C_SPEC_COLOUR + 3] = 1.0
+    lmat = torch.zeros((2, 12))
+    lmat[:, 0:3] = torch.tensor([0.0, 2.0, 1.0])
+    lmat[:, 3:6] = 1.0
+    lmat[1, 11] = 1.0  # is_spot
+    inp = shade_kernel.ShadeInputs(
+        # view position (0, 0, 5), sun from +z, white
+        scalars=torch.tensor([0.0, 0.0, 5.0, 0.0, 0.0, 1.0, 1.0, 1.0, 1.0] + [0.0] * 23),
+        mat=mat, lmat=lmat,
+        counts=torch.tensor([2, 1, 0], dtype=torch.int32),
+        indices=torch.tensor([[0, 1], [1, 0], [0, 0]], dtype=torch.int32),
+        block_py=torch.tensor([3, 3], dtype=torch.int32),
+        block_px0=torch.tensor([0, 128], dtype=torch.int32), pix=pix,
+        mid=(torch.arange(m) >= 64).to(torch.int32), samples=torch.ones((4, m)))
+    spec = shade_kernel.ShadeSpec(
+        n_layers=1, tex_slots=(True,) + (False,) * 8, slot_bundle=(0,) * 8, ncx=3, ncy=1,
+        n_slices=1, rcp_csx=float(np.float32(1.0 / 48.0)), rcp_csy=float(np.float32(1e-3)),
+        coeff_scale=1.0, coeff_bias=0.0, z_near=0.1, z_far=100.0, transmission=False,
+        fb_width=256.0)
+    return inp, spec
+
+
+@pytest.mark.parametrize("transmission", [False, True])
+def test_shade_work_counts_by_hand(transmission):
+    """shade_work (kernel 3's bound) on crafted inputs against a hand
+    count: 118 valid pixels, 38 with lights 0 and 1, 48 with light 1 and 32
+    with none (124 lights, 86 of them the spot); 54 valid pixels with a
+    diffuse texture. A valid pixel costs 174 operations opaque and 361 in
+    transmission, a light 122 (+ 11 for a spot) and 236, the diffuse slot 3
+    and its multiplies 3. Four warps hold valid pixels; the second spans
+    clusters 0 and 1."""
+    inp, spec = _crafted_shade_inputs()
+    spec = spec._replace(transmission=transmission)
+    w = shade_kernel.shade_work(inp, spec)
+    assert (w.valid, w.lights, w.warps, w.uniform_warps) == (118, 124, 4, 3)
+    tables = 32 * 4 + 2 * 29 * 4 + 2 * 12 * 4 + 3 * 4 + 6 * 4 + 2 * 4 + 2 * 4
+    if transmission:
+        assert w.ops == 118 * 361 + 124 * 236 + 118 * 3 + 54 * 3
+        # all 256 pixels: valid flag and 32 planes out; valid ones: 8 planes
+        # (with the thickness scale), the material id, 4 sample channels
+        assert w.nbytes == tables + 256 * 4 * 33 + 118 * 4 * (8 + 1 + 4)
+    else:
+        assert w.ops == 118 * 174 + 124 * 122 + 86 * 11 + 118 * 3 + 54 * 3
+        assert w.nbytes == tables + 256 * 4 * 4 + 118 * 4 * (7 + 1 + 4)
+    # and the plain version shades exactly the valid pixels
+    out = torch.stack(shade_kernel.fused_shade_plain(inp, spec))
+    assert bool((out[:, inp.pix[7] == 0] == 0).all())
+    assert bool((out[:, inp.pix[7] > 0] != 0).any(dim=0).all())

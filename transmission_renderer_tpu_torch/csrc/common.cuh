@@ -14,12 +14,13 @@
 // Finish a C entry point: report a refused launch.
 static inline int trt_launch_status() { return (int)cudaGetLastError(); }
 
-// Blocks of `threads` threads of `kernel` that the card holds resident at
-// once (at least one per SM): the grid of a persistent kernel.
-static inline int trt_resident_blocks(const void* kernel, int threads) {
+// Blocks of `threads` threads of `kernel` (with `smem` bytes of dynamic
+// shared memory) that the card holds resident at once (at least one per
+// SM): the grid of a persistent kernel.
+static inline int trt_resident_blocks(const void* kernel, int threads, size_t smem = 0) {
     int device = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     return sms * (per_sm > 0 ? per_sm : 1);
 }

@@ -27,7 +27,8 @@
 //   "no winner". The key buffer comes zeroed from the wrapper.
 // - A persistent grid (as many 256-thread blocks as are resident) pulls
 //   items from an atomic counter. The item list is compact and built on
-//   the card by a one-block plan kernel: the tile slots with a non-empty
+//   the card by a one-block plan kernel (work_list.cuh, which kernel 6
+//   shares): the tile slots with a non-empty
 //   run, bucketed by segment count, most segments first (a counting sort;
 //   runs of 63 segments and more share the top bucket), and the running
 //   count of segments in that order. So the heaviest segments start in
@@ -57,7 +58,7 @@
 // built with --fmad=false, so edge functions and depth round exactly as
 // in the plain version (a contracted FMA would move coverage on shared
 // edges): the channels equal the plain version's bit for bit.
-#include "common.cuh"
+#include "work_list.cuh"
 
 namespace {
 
@@ -74,26 +75,10 @@ constexpr int RESOLVE_THREADS = 256;
 constexpr int CLASS_SHIFT = 22;
 constexpr int CLASS_MASK = (1 << CLASS_SHIFT) - 1;
 constexpr unsigned int NO_INDEX = 0xFFFFFFFFu;
-constexpr int PLAN_THREADS = 1024;
-constexpr int BUCKETS = 64;  // by segment count: 1 .. 62, and 63 or more
 
 __device__ __forceinline__ bool covered(float e, float a, float b) {
     bool tl = (a > 0.0f) || ((a == 0.0f) && (b > 0.0f));
     return (e > 0.0f) || ((e == 0.0f) && tl);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // [start, end) of tile slot k's run in the sorted records
@@ -114,90 +99,29 @@ __device__ __forceinline__ void stage_chunk(float4 (*buf)[RACE_F4], const float*
                                             int base, int n) {
     for (int i = threadIdx.x; i < n * RACE_F4; i += RACE_THREADS) {
         const int r = i / RACE_F4, part = i % RACE_F4;
-        cp_async16(&buf[r][part], recs + (size_t)(base + r) * REC_F32 + part * 4);
+        work_list::cp_async16(&buf[r][part], recs + (size_t)(base + r) * REC_F32 + part * 4);
     }
-    cp_async_commit();
+    work_list::cp_async_commit();
 }
 
-__device__ __forceinline__ int run_segments(const int* __restrict__ tile_start,
-                                            const int* __restrict__ tile_ids, int k,
-                                            int num_classes, int pass_class, int segment) {
-    int start, end;
-    tile_run(tile_start, tile_ids[k], num_classes, pass_class, start, end);
-    return (end - start + segment - 1) / segment;
-}
+// The segment count of slot k's run
+struct RunSegments {
+    const int* tile_start;
+    const int* tile_ids;
+    int num_classes, pass_class, segment;
+    __device__ __forceinline__ int operator()(int k) const {
+        int start, end;
+        tile_run(tile_start, tile_ids[k], num_classes, pass_class, start, end);
+        return (end - start + segment - 1) / segment;
+    }
+};
 
-// The work list, on one block: order[0:n_slots) = the slots with a
-// non-empty run, most segments first; seg_cum[p] = segments of
-// order[0..p]. plan[0] is the race's item counter (left 0), plan[1] =
-// n_slots, order = plan + 2, seg_cum = plan + 2 + k_tiles.
-__global__ void __launch_bounds__(PLAN_THREADS)
+// The work list (work_list.cuh) over the slots' runs, on one block.
+__global__ void __launch_bounds__(work_list::PLAN_THREADS)
 raster_plan_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_ids,
                    int k_tiles, int num_classes, int pass_class, int segment, int* plan) {
-    // plan is not __restrict__: its slots are written and read by other
-    // threads of the block across barriers, so no load of it may be moved
-    __shared__ int hist[BUCKETS];
-    __shared__ int warp_sum[PLAN_THREADS / 32];
-    __shared__ int carry, n_slots_sh;
-    int* order = plan + 2;
-    int* seg_cum = plan + 2 + k_tiles;
-    const int t = threadIdx.x;
-    if (t < BUCKETS) hist[t] = 0;
-    __syncthreads();
-    for (int k = t; k < k_tiles; k += PLAN_THREADS) {
-        const int n = run_segments(tile_start, tile_ids, k, num_classes, pass_class, segment);
-        if (n > 0) atomicAdd(&hist[min(n, BUCKETS - 1)], 1);
-    }
-    __syncthreads();
-    if (t == 0) {  // each bucket's first position, the top bucket first
-        int run = 0;
-        for (int b = BUCKETS - 1; b > 0; --b) {
-            const int c = hist[b];
-            hist[b] = run;
-            run += c;
-        }
-        plan[1] = run;
-        n_slots_sh = run;
-        carry = 0;
-    }
-    __syncthreads();
-    const int n_slots = n_slots_sh;
-    for (int k = t; k < k_tiles; k += PLAN_THREADS) {
-        const int n = run_segments(tile_start, tile_ids, k, num_classes, pass_class, segment);
-        if (n > 0) order[atomicAdd(&hist[min(n, BUCKETS - 1)], 1)] = k;
-    }
-    __syncthreads();
-    // inclusive scan of the segment counts in that order, 1024 at a time
-    const int lane = t & 31, warp = t >> 5;
-    for (int base = 0; base < n_slots; base += PLAN_THREADS) {
-        const int p = base + t;
-        int x = p < n_slots
-                    ? run_segments(tile_start, tile_ids, __ldcg(order + p), num_classes,
-                                   pass_class, segment)
-                    : 0;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-            if (lane >= d) x += y;
-        }
-        if (lane == 31) warp_sum[warp] = x;
-        __syncthreads();
-        if (warp == 0) {
-            int w = warp_sum[lane];
-#pragma unroll
-            for (int d = 1; d < 32; d <<= 1) {
-                const int y = __shfl_up_sync(0xFFFFFFFFu, w, d);
-                if (lane >= d) w += y;
-            }
-            warp_sum[lane] = w;
-        }
-        __syncthreads();
-        x += carry + (warp > 0 ? warp_sum[warp - 1] : 0);
-        if (p < n_slots) seg_cum[p] = x;
-        __syncthreads();
-        if (t == PLAN_THREADS - 1) carry = x;
-        __syncthreads();
-    }
+    work_list::build(RunSegments{tile_start, tile_ids, num_classes, pass_class, segment},
+                     k_tiles, plan);
 }
 
 __global__ void __launch_bounds__(RACE_THREADS)
@@ -210,24 +134,13 @@ raster_race_kernel(const float* __restrict__ recs, const int* __restrict__ tile_
     __shared__ int item[3];  // tile slot (-1: no items left), begin, end
     const int col = threadIdx.x % TILE_W;
     const int row0 = (threadIdx.x / TILE_W) * PX_PER_THREAD;
-    const int* order = plan + 2;
-    const int* seg_cum = plan + 2 + k_tiles;
-    const int n_slots = plan[1];
-    const int n_items = n_slots > 0 ? seg_cum[n_slots - 1] : 0;
 
     while (true) {
         if (threadIdx.x == 0) {
-            const int it = atomicAdd(plan, 1);
-            int slot = -1, begin = 0, end = 0;
-            if (it < n_items) {
-                int lo = 0, hi = n_slots - 1;  // the first p with seg_cum[p] > it
-                while (lo < hi) {
-                    const int mid = (lo + hi) >> 1;
-                    if (seg_cum[mid] > it) hi = mid;
-                    else lo = mid + 1;
-                }
-                slot = order[lo];
-                const int j = it - (lo > 0 ? seg_cum[lo - 1] : 0);
+            int j;
+            const int slot = work_list::pull(plan, k_tiles, j);
+            int begin = 0, end = 0;
+            if (slot >= 0) {
                 int start, stop;
                 tile_run(tile_start, tile_ids[slot], num_classes, pass_class, start, stop);
                 begin = start + j * segment;
@@ -265,9 +178,9 @@ raster_race_kernel(const float* __restrict__ recs, const int* __restrict__ tile_
             if (c + 1 < n_chunks) {
                 stage_chunk(stage[(c + 1) & 1], recs, begin + (c + 1) * CHUNK,
                             min(CHUNK, n - (c + 1) * CHUNK));
-                cp_async_wait<1>();
+                work_list::cp_async_wait<1>();
             } else {
-                cp_async_wait<0>();
+                work_list::cp_async_wait<0>();
             }
             __syncthreads();
             const float4* buf = &stage[c & 1][0][0];
@@ -424,9 +337,8 @@ TRT_EXPORT int trt_raster_gbuf(const float* recs, const int* tile_start, const i
                                float* fout, cudaStream_t stream) {
     if (k_tiles > 0) {
         int* plan = reinterpret_cast<int*>(keys + (size_t)k_tiles * TILE_PX);
-        raster_plan_kernel<<<1, PLAN_THREADS, 0, stream>>>(tile_start, tile_ids, k_tiles,
-                                                            num_classes, pass_class, segment,
-                                                            plan);
+        raster_plan_kernel<<<1, work_list::PLAN_THREADS, 0, stream>>>(
+            tile_start, tile_ids, k_tiles, num_classes, pass_class, segment, plan);
         int err = trt_launch_status();
         if (err != 0) return err;
         raster_race_kernel<<<trt_resident_blocks((const void*)raster_race_kernel,

@@ -22,13 +22,29 @@
 // pointer means no factor, and the kernel then does what it did without
 // them.
 //
-// Bound: arithmetic (~250 flops per light per pixel) and the per-pixel
-// reads of ~10 input planes; the material/light/cluster tables are tiny
-// and cached. The plain version is render/shade_kernel.py::
-// fused_shade_plain, in the same op order; the library is built without
-// fast math, so division and sqrt are IEEE and only log2f/cosf may
-// differ from the plain version by an ulp (a cluster-boundary pixel can
-// then pick the neighbouring z-slice).
+// What bounds it: the per-pixel planes it reads and writes (bytes bound
+// it on the 1080p frames), beside ~170 operations of set-up per valid
+// pixel and ~120 per light (~360 and ~240 with the BTDF):
+// render/shade_kernel.py::shade_work counts both on a call's data.
+// The design:
+// - Invalid pixels (sky; pixels without glass in the transmission
+//   worklist) read the valid plane, write their zeros and leave before
+//   any shading. Pixels come in 128-pixel row blocks, so whole warps of
+//   sky leave together.
+// - The material matrix and the light matrix are staged in shared memory
+//   once per block; a grid of resident blocks strides over the row blocks.
+// - Each lane reads its cluster's light list (id-ascending, so lights add
+//   in the oracle's order). A warp loading a list shared by its lanes
+//   once (__match_any_sync, 80% of the 1080p frame's warps) measured 2.5%
+//   slower on an H100: the two-light lists are L1 hits (PERF.md, Findings).
+// - The opaque and transmission variants are two instantiations, each
+//   with its own registers; the transmission variant writes each output
+//   plane as soon as it is final.
+// The plain version is render/shade_kernel.py::fused_shade_plain, in the
+// same op order; the library is built without fast math, so division and
+// sqrt are IEEE and only log2f/cosf may differ from the plain version by
+// an ulp (a cluster-boundary pixel can then pick the neighbouring
+// z-slice).
 #include "common.cuh"
 
 namespace {
@@ -40,6 +56,13 @@ constexpr int C_IOR = 9, C_TRANSMISSION = 10, C_THICKNESS = 11, C_ATT_DIST = 12;
 constexpr int C_ATT_COLOUR = 13, C_SPEC_FACTOR = 16, C_SPEC_COLOUR = 17;
 constexpr int C_ATT_ISINF = 20, C_TID0 = 21;
 constexpr int N_PIX_BASE = 9;
+constexpr int N_TRANS_OUT = 32;
+// 128-pixel row blocks, 4 warps each. With at least 6 blocks resident per
+// SM ptxas fits the opaque and transmission variants in 64 and 78
+// registers without spills: 4% faster on the 1080p RT frame on an H100
+// than no cap (PERF.md, Findings)
+constexpr int SHADE_THREADS = 128;
+constexpr int SHADE_MIN_BLOCKS = 6;
 
 struct ShadeParams {
     int n_mat, n_lights, n_slots, n_layers, tex_flags, ncx, ncy, n_slices,
@@ -131,19 +154,29 @@ __device__ __forceinline__ V3 transmission_btdf(V3 normal, V3 light, V3 view, co
               (1.0f - fr.z) * dv * m.diffuse.z);
 }
 
-__global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
-                             const float* __restrict__ mat, const float* __restrict__ lmat,
-                             const int* __restrict__ counts, const int* __restrict__ indices,
-                             const int* __restrict__ block_py, const int* __restrict__ block_px0,
-                             const float* __restrict__ pix, const int* __restrict__ mid_in,
-                             const float* __restrict__ samples,
-                             const float* __restrict__ sun_f,
-                             const float* __restrict__ light_f, float* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= p.m) return;
+// One pixel. Invalid pixels (sky, or no glass in the transmission
+// worklist) write their zeros and leave.
+template <bool T>
+__device__ __forceinline__ void shade_pixel(const ShadeParams& p, int i,
+                                            const float* __restrict__ scalars,
+                                            const float* s_mat, const float* s_lmat,
+                                            const int* __restrict__ counts,
+                                            const int* __restrict__ indices,
+                                            const int* __restrict__ block_py,
+                                            const int* __restrict__ block_px0,
+                                            const float* __restrict__ pix,
+                                            const int* __restrict__ mid_in,
+                                            const float* __restrict__ samples,
+                                            const float* __restrict__ sun_f,
+                                            const float* __restrict__ light_f,
+                                            float* __restrict__ out) {
     const size_t M = (size_t)p.m;
     auto plane = [&](int k) { return pix[(size_t)k * M + i]; };
-    const bool T = p.transmission != 0;
+    auto write = [&](int k, float v) { out[(size_t)k * M + i] = v; };
+    if (!(plane(7) > 0.5f)) {
+        for (int k = 0; k < (T ? N_TRANS_OUT : 3); ++k) write(k, 0.0f);
+        return;
+    }
     const bool use_diffuse = p.tex_flags & 1, use_mr = p.tex_flags & 2,
                use_normal = p.tex_flags & 4, use_emissive = p.tex_flags & 8,
                use_tr = p.tex_flags & 32, use_th = p.tex_flags & 64,
@@ -152,9 +185,8 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
     const V3 pos = v3(plane(0), plane(1), plane(2));
     const V3 nrm = v3(plane(3), plane(4), plane(5));
     const float depth = plane(6);
-    const bool valid = plane(7) > 0.5f;
     const int mid = min(max(mid_in[i], 0), p.n_mat - 1);
-    const float* mrow = mat + (size_t)mid * MAT_COLS;
+    const float* mrow = s_mat + mid * MAT_COLS;
 
     // (tid, 4 sample channels) of a texture slot; imat = _MAT_SLOTS index
     auto slot_sample = [&](int imat, float s[4]) {
@@ -221,13 +253,36 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
               d0.z + (diffuse.z - d0.z) * metallic);
     const float f90v = spec_factor + (1.0f - spec_factor) * metallic;
     m.f90 = v3(f90v, f90v, f90v);
-    float trans_factor = 0.0f, thickness = 0.0f, trans_rough = 0.0f;
+    float trans_rough = 0.0f, ray_len = 0.0f;
     if (T) {
-        trans_factor = mrow[C_TRANSMISSION];
+        // the planes that are final now leave now: fewer values stay live
+        // through the light loop
+        float trans_factor = mrow[C_TRANSMISSION];
         if (use_tr && slot_sample(4, s) >= 0) trans_factor = trans_factor * s[0];
-        thickness = mrow[C_THICKNESS];
+        float thickness = mrow[C_THICKNESS];
         if (use_th && slot_sample(5, s) >= 0) thickness = thickness * s[1];
         trans_rough = m.ar * fminf(fmaxf(ior * 2.0f - 2.0f, 0.0f), 1.0f);
+        ray_len = thickness * plane(8);
+        write(11, p.log2_fbw * (roughness * fminf(fmaxf(ior * 2.0f - 2.0f, 0.0f), 1.0f)));
+        write(12, ray_len);
+        write(14, roughness);
+        write(15, trans_factor);
+        write(16, mrow[C_ATT_ISINF] > 0.5f ? __int_as_float(0x7f800000) : mrow[C_ATT_DIST]);
+        write(17, mrow[C_ATT_COLOUR]);
+        write(18, mrow[C_ATT_COLOUR + 1]);
+        write(19, mrow[C_ATT_COLOUR + 2]);
+        write(20, diffuse.x);
+        write(21, diffuse.y);
+        write(22, diffuse.z);
+        write(23, m.f0.x);
+        write(24, m.f0.y);
+        write(25, m.f0.z);
+        write(26, f90v);
+        write(27, f90v);
+        write(28, f90v);
+        write(29, emission.x);
+        write(30, emission.y);
+        write(31, emission.z);
     }
 
     const V3 view_vec = v3(scalars[0] - pos.x, scalars[1] - pos.y, scalars[2] - pos.z);
@@ -245,7 +300,7 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
     basic_brdf(normal, sdir, sun_i, view, m, p, acc_d, acc_s, true);
     if (T) acc_t = mul(sun_i, transmission_btdf(normal, sdir, view, m, trans_rough, p));
 
-    // cluster (shader/src/lib.rs:205-215) and its light list
+    // cluster (shader/src/lib.rs:205-215)
     const float depth_range = 2.0f * (1.0f - depth) - 1.0f;
     const float lin = p.lin_num / (p.zsum - depth_range * p.zdiff);
     const float slice_f = log2f(lin) * p.coeff_scale + p.coeff_bias;
@@ -256,9 +311,10 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
     const int cy = min((int)(((float)block_py[blk] + 0.5f) * p.rcp_csy), p.ncy - 1);
     const int cluster = zsl * (p.ncx * p.ncy) + cy * p.ncx + cx;
     const int count = min(counts[cluster], p.n_slots);
+    // id-ascending, so lights add in the oracle's order
     for (int slot = 0; slot < count; ++slot) {
         const int lid = indices[(size_t)cluster * p.n_slots + slot];
-        const float* lrow = lmat + (size_t)lid * 12;
+        const float* lrow = s_lmat + lid * 12;
         const V3 vec = v3(lrow[0] - pos.x, lrow[1] - pos.y, lrow[2] - pos.z);
         const float dist_sq = dot_raw(vec, vec);
         const float dinv = 1.0f / sqrtf(dist_sq);
@@ -279,7 +335,6 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
         if (T) acc_t = acc_t + mul(radiance, transmission_btdf(normal, direction, view, m, trans_rough, p));
     }
 
-    auto write = [&](int k, float v) { out[(size_t)k * M + i] = valid ? v : 0.0f; };
     if (!T) {
         const V3 o = (acc_d + acc_s) + emission;
         write(0, o.x);
@@ -287,6 +342,15 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
         write(2, o.z);
         return;
     }
+    write(0, acc_d.x);
+    write(1, acc_d.y);
+    write(2, acc_d.z);
+    write(3, acc_s.x);
+    write(4, acc_s.y);
+    write(5, acc_s.z);
+    write(6, acc_t.x);
+    write(7, acc_t.y);
+    write(8, acc_t.z);
 
     // refraction ray (glam-pbr ibl_volume_refraction, lib.rs:292-345); the
     // reference's unguarded sqrt (NaN on total internal reflection) is kept
@@ -298,7 +362,6 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
     const V3 refr = v3(eta * inc.x - coef * normal.x, eta * inc.y - coef * normal.y,
                        eta * inc.z - coef * normal.z);
     const float rinv = 1.0f / sqrtf(dot_raw(refr, refr));
-    const float ray_len = thickness * plane(8);
     const V3 ex = v3(pos.x + refr.x * rinv * ray_len, pos.y + refr.y * rinv * ray_len,
                      pos.z + refr.z * rinv * ray_len);
     auto dc = [&](int row) {
@@ -306,20 +369,46 @@ __global__ void shade_kernel(ShadeParams p, const float* __restrict__ scalars,
         return ((r[0] * ex.x + r[1] * ex.y) + r[2] * ex.z) + r[3];
     };
     const float dcw = dc(3);
-    const float uv_x = (dc(0) / dcw + 1.0f) * 0.5f;
-    const float uv_y = (dc(1) / dcw + 1.0f) * 0.5f;
-    const float lod = p.log2_fbw * (roughness * fminf(fmaxf(ior * 2.0f - 2.0f, 0.0f), 1.0f));
-    const float nov_unclamped = dot_raw(normal, view);
-    const float att_dist =
-        mrow[C_ATT_ISINF] > 0.5f ? __int_as_float(0x7f800000) : mrow[C_ATT_DIST];
-    const float vals[32] = {
-        acc_d.x, acc_d.y, acc_d.z, acc_s.x, acc_s.y, acc_s.z, acc_t.x, acc_t.y, acc_t.z,
-        uv_x, uv_y, lod, ray_len, nov_unclamped, roughness, trans_factor, att_dist,
-        mrow[C_ATT_COLOUR], mrow[C_ATT_COLOUR + 1], mrow[C_ATT_COLOUR + 2],
-        diffuse.x, diffuse.y, diffuse.z, m.f0.x, m.f0.y, m.f0.z, m.f90.x, m.f90.y, m.f90.z,
-        emission.x, emission.y, emission.z,
-    };
-    for (int k = 0; k < 32; ++k) write(k, vals[k]);
+    write(9, (dc(0) / dcw + 1.0f) * 0.5f);
+    write(10, (dc(1) / dcw + 1.0f) * 0.5f);
+    write(13, dot_raw(normal, view));
+}
+
+// The material and light tables are staged in shared memory once per
+// block; the block then shades 128-pixel row blocks, a grid's stride apart
+// (the grid is as many blocks as the card holds resident).
+template <bool T>
+__global__ void __launch_bounds__(SHADE_THREADS, SHADE_MIN_BLOCKS)
+shade_kernel(ShadeParams p, const float* __restrict__ scalars, const float* __restrict__ mat,
+             const float* __restrict__ lmat, const int* __restrict__ counts,
+             const int* __restrict__ indices, const int* __restrict__ block_py,
+             const int* __restrict__ block_px0, const float* __restrict__ pix,
+             const int* __restrict__ mid_in, const float* __restrict__ samples,
+             const float* __restrict__ sun_f, const float* __restrict__ light_f,
+             float* __restrict__ out) {
+    extern __shared__ float smem[];
+    float* s_mat = smem;
+    float* s_lmat = s_mat + p.n_mat * MAT_COLS;
+    for (int k = threadIdx.x; k < p.n_mat * MAT_COLS; k += SHADE_THREADS) s_mat[k] = mat[k];
+    for (int k = threadIdx.x; k < p.n_lights * 12; k += SHADE_THREADS) s_lmat[k] = lmat[k];
+    __syncthreads();
+    for (int blk = blockIdx.x; blk < p.m / SHADE_THREADS; blk += gridDim.x)
+        shade_pixel<T>(p, blk * SHADE_THREADS + threadIdx.x, scalars, s_mat, s_lmat, counts,
+                       indices, block_py, block_px0, pix, mid_in, samples, sun_f, light_f, out);
+}
+
+template <bool T>
+void launch(const ShadeParams& p, const float* scalars, const float* mat, const float* lmat,
+            const int* counts, const int* indices, const int* block_py, const int* block_px0,
+            const float* pix, const int* mid, const float* samples, const float* sun_f,
+            const float* light_f, float* out, cudaStream_t stream) {
+    const size_t smem = sizeof(float) * (p.n_mat * MAT_COLS + p.n_lights * 12);
+    const int blocks = p.m / SHADE_THREADS;
+    const int resident = trt_resident_blocks(reinterpret_cast<const void*>(&shade_kernel<T>),
+                                             SHADE_THREADS, smem);
+    shade_kernel<T><<<blocks < resident ? blocks : resident, SHADE_THREADS, smem, stream>>>(
+        p, scalars, mat, lmat, counts, indices, block_py, block_px0, pix, mid, samples, sun_f,
+        light_f, out);
 }
 
 }  // namespace
@@ -353,11 +442,14 @@ TRT_EXPORT int trt_shade(const int* iparams, const float* fparams, const float* 
     p.log2_fbw = fparams[7];
     p.pi_f32 = 3.14159265358979323846f;
     p.frac_1_pi_f32 = (float)(1.0 / 3.14159265358979323846);
+    if (p.m % SHADE_THREADS != 0 || p.n_mat < 1) return (int)cudaErrorInvalidValue;
     if (p.m > 0) {
-        const int threads = 128;
-        shade_kernel<<<(p.m + threads - 1) / threads, threads, 0, stream>>>(
-            p, scalars, mat, lmat, counts, indices, block_py, block_px0, pix, mid, samples,
-            sun_f, light_f, out);
+        if (p.transmission)
+            launch<true>(p, scalars, mat, lmat, counts, indices, block_py, block_px0, pix, mid,
+                         samples, sun_f, light_f, out, stream);
+        else
+            launch<false>(p, scalars, mat, lmat, counts, indices, block_py, block_px0, pix, mid,
+                          samples, sun_f, light_f, out, stream);
     }
     return trt_launch_status();
 }

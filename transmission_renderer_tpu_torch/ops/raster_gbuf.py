@@ -154,19 +154,19 @@ def _num_classes(tile_start, width, height) -> int:
     return (tile_start.shape[0] - 1) // (-(-width // TILE_W) * -(-height // TILE_H))
 
 
-def _pixel_ndc(tile_ids, width, height):
-    """(nx, ny) [K, 8, 128]: the NDC centre of each pixel of the listed
-    tiles, in the kernel's arithmetic order."""
+def _pixel_ndc(tile_ids, width, height, tile_w=TILE_W, tile_h=TILE_H):
+    """(nx, ny) [K, tile_h, tile_w]: the NDC centre of each pixel of the
+    listed tiles, in the kernels' arithmetic order (kernels 1 and 6)."""
     dev = tile_ids.device
-    tiles_x = -(-width // TILE_W)
+    tiles_x = -(-width // tile_w)
     tid = tile_ids.long()
-    cols = torch.arange(TILE_W, dtype=torch.float32, device=dev)
-    rows = torch.arange(TILE_H, dtype=torch.float32, device=dev)
+    cols = torch.arange(tile_w, dtype=torch.float32, device=dev)
+    rows = torch.arange(tile_h, dtype=torch.float32, device=dev)
     tx = (tid % tiles_x).to(torch.float32)[:, None, None]
     ty = (tid // tiles_x).to(torch.float32)[:, None, None]
-    nx = ((tx * TILE_W + cols[None, None, :]) + 0.5) * (2.0 / width) - 1.0
-    ny = ((ty * TILE_H + rows[None, :, None]) + 0.5) * (2.0 / height) - 1.0
-    shape = (tid.shape[0], TILE_H, TILE_W)
+    nx = ((tx * tile_w + cols[None, None, :]) + 0.5) * (2.0 / width) - 1.0
+    ny = ((ty * tile_h + rows[None, :, None]) + 0.5) * (2.0 / height) - 1.0
+    shape = (tid.shape[0], tile_h, tile_w)
     return nx.expand(shape), ny.expand(shape)
 
 

@@ -209,6 +209,101 @@ def pixel_clusters(spec: ShadeSpec, depth: torch.Tensor, px: torch.Tensor,
     return zsl * (spec.ncx * spec.ncy) + cy * spec.ncx + cx
 
 
+class ShadeWork(NamedTuple):
+    """What one kernel-3 call must do on its data (``shade_work``)."""
+
+    nbytes: int  # bytes read (each needed input once) and written
+    ops: int  # float operations of the kernel's arithmetic
+    valid: int  # pixels shaded (the rest only write zeros)
+    lights: int  # (valid pixel, light) pairs evaluated
+    warps: int  # 32-pixel warps holding a valid pixel
+    uniform_warps: int  # ... whose valid pixels share one cluster
+
+
+# Operations of csrc/shade.cu, counted from its arithmetic (add, sub, mul,
+# div, sqrt, min, max, compare, log2 and cos one each; integer address
+# arithmetic not counted). Helpers: a dot product 5, clamped 6, normalise
+# 10, fresnel 13, d_ggx 11, v_smith 16. basic_brdf: 97 (view + light 3,
+# normalise 10, four clamped dots 24, fresnel 13, radiance 3, diffuse
+# weight 4, diffuse 6, d * v 28, specular 6), 6 more to accumulate;
+# transmission_btdf 109 (the mirrored light 22, the half vector 13, four
+# clamped dots 24, d * v 28, fresnel 13, (1 - F) d v diffuse 9).
+_OPS_SETUP = 2 + 11 + 25 + 14 + 19  # material clamp, normal, invariants, view, cluster
+_OPS_OPAQUE = _OPS_SETUP + 97 + 6  # + the sun's BRDF, diffuse + specular + emission
+# + the transmission set-up (trans roughness 5, ray length 1, lod 6,
+# attenuation distance 1), the sun's BRDF and BTDF (97 + 109 + 3) and the
+# refraction ray (68: eta, n.i, k, its coefficient, the ray, 1/|ray|, the
+# exit point, three clip rows, uv)
+_OPS_TRANS = _OPS_SETUP + 13 + 97 + 112 + 68
+# a light: its vector, distance, direction, attenuation, weight and
+# radiance 18, then the BRDF 103; the opaque variant tests is_spot (1)
+# and a spot light adds 11 (its epsilon, theta, cos, the falloff); the
+# transmission variant adds the BTDF and its accumulation (115)
+_OPS_LIGHT_OPAQUE = 18 + 1 + 103
+_OPS_SPOT = 11
+_OPS_LIGHT_TRANS = 18 + 103 + 115
+# a texture slot in use: its layer (max, compare) and the tid test (3),
+# then where the tid is valid the factor's multiplies (the normal map:
+# the tangent frame and the renormalised normal, 84)
+_OPS_SLOT = 3
+_SLOT_MULS = {0: 3, 1: 2, 2: 84, 3: 3, 5: 1, 6: 1, 7: 1, 8: 3}  # by tex_slots position
+
+
+def shade_work(inp: ShadeInputs, spec: ShadeSpec) -> ShadeWork:
+    """The bytes and operations one kernel-3 call needs on its own data:
+    an invalid pixel reads its valid flag and writes zeros; a valid one
+    reads the planes the kernel reads (position, normal, depth, the
+    thickness scale in transmission mode, the derivative planes with a
+    normal map, the material id, the 4 sample channels of each texture
+    slot in use, the shadow factors of the sun and of each light it
+    evaluates) and does the set-up, the texture factors its material's
+    slots hold, and the BRDF (and BTDF) of the sun and of each light of
+    its cluster's list. The tables count once."""
+    T = spec.transmission
+    dev = inp.mid.device
+    m_pix = inp.mid.shape[0]
+    valid = inp.pix[7] > 0.5
+    n_valid = int(valid.sum())
+    blk = torch.arange(m_pix, device=dev) // 128
+    lane = (torch.arange(m_pix, device=dev) % 128).to(torch.float32)
+    cluster = pixel_clusters(spec, inp.pix[6], inp.block_px0[blk].to(torch.float32) + lane,
+                             inp.block_py[blk].to(torch.float32)).long()
+    n_slots = inp.indices.shape[1]
+    count = torch.where(valid, torch.clamp(inp.counts[cluster], max=n_slots), 0)
+    lights = int(count.sum())
+    ops = n_valid * (_OPS_TRANS if T else _OPS_OPAQUE)
+    ops += lights * (_OPS_LIGHT_TRANS if T else _OPS_LIGHT_OPAQUE)
+    if inp.light_f is not None:
+        ops += lights
+    if inp.sun_f is not None:
+        ops += n_valid * (3 if T else 4)
+    if not T and n_slots:
+        slot = torch.arange(n_slots, device=dev)
+        lid = inp.indices[cluster].long()  # [M, S]
+        spots = (slot[None] < count[:, None]) & (inp.lmat[lid, 11] > 0.5)
+        ops += int(spots.sum()) * _OPS_SPOT
+    mid = torch.clamp(inp.mid, 0, inp.mat.shape[0] - 1).long()[valid]
+    slots = [f for f, on in enumerate(spec.tex_slots)
+             if on and f in _SLOT_MULS and (T or f not in (5, 6))]
+    for f in slots:
+        hit = int((inp.mat[mid, _C_TID0 + _SLOT_TO_IMAT[f]].to(torch.int32) >= 0).sum())
+        ops += n_valid * _OPS_SLOT + hit * _SLOT_MULS[f]
+    planes = 7 + T + (len(PIX_DERIV) if spec.tex_slots[2] else 0)
+    per_valid = 4 * (planes + 1 + 4 * len(slots) + (inp.sun_f is not None))
+    tables = sum(t.nbytes for t in (inp.scalars, inp.mat, inp.lmat, inp.counts, inp.indices,
+                                    inp.block_py, inp.block_px0))
+    nbytes = (tables + m_pix * 4 * (1 + (N_TRANS_OUT if T else 3)) + n_valid * per_valid
+              + lights * 4 * (inp.light_f is not None))
+    # the kernel's warp test: the valid lanes of a warp share one cluster
+    vw = valid.reshape(-1, 32)
+    cw = cluster.reshape(-1, 32)
+    lo = torch.where(vw, cw, torch.iinfo(torch.int64).max).amin(dim=1)
+    hi = torch.where(vw, cw, -1).amax(dim=1)
+    busy = vw.any(dim=1)
+    return ShadeWork(nbytes, ops, n_valid, lights, int(busy.sum()),
+                     int((busy & (lo == hi)).sum()))
+
+
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------

@@ -87,7 +87,34 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    over the whole frame, the RMSE inside GOLDEN_DROPPED_TILES printed
    beside it; (e) median ms/frame over 10 frames after 2 warm-ups,
    per-pass ms, and kernel 6's ms per frame beside its plain version's
-   (replayed once) and its bound.
+   (replayed once) and its bound; (f) kernel 1 replayed over the frame's
+   own materialised bins (rasterize_gbuffer_pallas on each pass, every
+   tile walking the big list before its run, as the reference's kernel
+   does): bit for bit against its plain version.
+9. the stress frame: the stress scene (build_stress_scene(), default
+   size) at the bench's config RenderConfig(width=1920, height=1080,
+   opaque_block_cap_frac=0.8125), camera and two lights, on the kernel
+   branch: alpha-clip depth peeling, the block-sparse opaque shade and the
+   non-fused sparse transmissive raster. (a) every kernel call of the
+   frame through the kernel and its plain version (kernel 1 bit for bit
+   on its ten calls, the peel's max_depth calls included; the others as
+   phase 4); (b) with the counts reset, the frame launches raster 10
+   (opaque, the class-2 peel's first round and 3 re-races, transmission,
+   the class-3 peel's first round and 3 re-races), tap 1, shade 2, fetch
+   1; (c) FrameDiagnostics at the bench's camera (yaw 0) and at its
+   sweep's far end (the bench's smoothed rig after target yaw 0.18,
+   bench_rig): the clip caps [608, 162, 41], no capacity overflow but the
+   peel's, the clip diagnostics printed beside the reference's
+   (STRESS_REFERENCE, BENCH_r05.json); (d) a finite image in [0, 1], and
+   with the peel run to convergence (8 rounds, full re-race caps: no
+   unresolved pixel) sRGB RMSE < 4e-3 against tests/goldens/stress_hd.png
+   (the reference's 1080p frame, rendered on the CPU by its
+   visibility-buffer branch); at the bench config the RMSE over the frame
+   and outside the tiles holding unresolved pixels is printed; (e) median
+   ms/frame over 10 frames after 2 warm-ups, per-pass ms (the peel's
+   ranges too) and kernel 1's ms over the frame's calls beside its plain
+   version's and its bound. Its launch counts are printed on a line of
+   their own before the kernels line.
 
 The kernels JSON object reports every kernel on the widest path that
 launches it: kernels 1-5 on the ray-traced frame (phase 7), kernel 6 on
@@ -104,8 +131,9 @@ valid pixels and the lights each evaluates) with what bounds it.
 library_ms is null: no single PyTorch call computes any of these
 functions (PERF.md gives the reason for each).
 
-The second-to-last lines are the kernels JSON object and the card's name
-and power limit; the last line is the result JSON object.
+The lines before the last are the stress frame's launch counts, the
+kernels JSON object and the card's name and power limit; the last line
+is the result JSON object.
 """
 
 from __future__ import annotations
@@ -302,13 +330,13 @@ def kernel_work(name: str, call, data=None) -> tuple:
         from transmission_renderer_tpu_torch.ops.raster_gbuf import (
             TILE_H, TILE_W, _num_classes, active_channels)
 
-        _, tile_ids, tile_start, _, width, height = args
+        _, tile_ids, tile_start, big_count, width, height = args
         nc = _num_classes(tile_start, width, height)
-        pc = kwargs.get("pass_class")
+        pc = None if nc == 1 else kwargs.get("pass_class")
         base = tile_ids.long() * nc
         lo = tile_start[base + (0 if pc is None else pc)]
         hi = tile_start[base + (nc if pc is None else pc + 1)]
-        recs = int((hi - lo).sum())
+        runs, nbig = int((hi - lo).sum()), int(big_count)
         px = tile_ids.numel() * TILE_H * TILE_W
         planes = len(active_channels(kwargs.get("pos_derivs", True),
                                      kwargs.get("uv_channels", True)))
@@ -323,9 +351,10 @@ def kernel_work(name: str, call, data=None) -> tuple:
         # interpolated value (pos, nrm, uv) and 18 more per derivative
         # pair (pos with pos_derivs, uv)
         covered, winners = data
-        nbytes = recs * 42 * 4 + tile_ids.numel() * 12 + px * 4 * (seeds + planes)
+        nbytes = (runs + nbig) * 42 * 4 + tile_ids.numel() * 12 + px * 4 * (seeds + planes)
         interp = 11 + 6 * (6 + 2 * uv) + 18 * (2 * uv + 3 * pd)
-        pairs = recs * TILE_H * TILE_W
+        # every tile tests its run and the big list
+        pairs = (runs + tile_ids.numel() * nbig) * TILE_H * TILE_W
         return nbytes, (pairs - covered) * 15 + covered * 31 + winners * interp
     if name == "tap_finish":
         quads, rows, uv, lod, _, classes = args
@@ -453,6 +482,17 @@ def raster_runs(name: str, call) -> tuple:
     tile_ids = args[1]
     recs = int(count.sum())
     return tile_ids.numel(), recs, recs / max(tile_ids.numel(), 1), int(count.max())
+
+
+def gbuf_counts(calls) -> list:
+    """Per kernel-1 call (the pixel-record pairs where the record covers
+    the pixel, the pixels with a winner): the counts of its bound."""
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+
+    return [(raster_gbuf.covered_pairs(*a[:3], *a[4:6], kw.get("pass_class"),
+                                       big_count=a[3]),
+             int((raster_gbuf.KERNEL.replay((a, kw), True)["tri"] >= 0).sum()))
+            for a, kw in calls]
 
 
 def check_parity(handles, calls, max_err, tag: str) -> None:
@@ -646,6 +686,234 @@ def flagship_scene(dev):
         point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
     ], device=dev)
     return builder, scene, dl, flags, params, lights
+
+
+def gbuf_on_materialised_bins(scene, dl, params, cfg) -> dict:
+    """{"raster_gbuf": the kernel-1 calls of the visibility-buffer frame's
+    two passes rasterised by rasterize_gbuffer_pallas over that frame's
+    own materialised bins (their big list included): the opaque pass,
+    then the transmissive pass seeded with its depth}."""
+    from transmission_renderer_tpu_torch.config import (
+        BUCKET_ALPHA_CLIP, BUCKET_OPAQUE, BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP)
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+    from transmission_renderer_tpu_torch.ops.cull import (
+        bucket_triangle_masks, cull_instances, transform_vertices)
+    from transmission_renderer_tpu_torch.ops.raster import (
+        bin_triangles_materialized, setup_triangles)
+
+    def frame():
+        world_pos, world_nrm, uvs, clip, tri_scale = transform_vertices(
+            scene, dl, params.proj_view)
+        visible = cull_instances(scene, params.view, params.frustum_x_xz,
+                                 params.frustum_y_yz, cfg.z_near)
+        depth = None
+        for buckets in ((BUCKET_OPAQUE, BUCKET_ALPHA_CLIP),
+                        (BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP)):
+            mask = bucket_triangle_masks(dl.tri_inst, dl.tri_bucket, visible, buckets)
+            setup = setup_triangles(clip, dl.tri_vtx, mask, cfg.width, cfg.height,
+                                    cfg.tile_w, cfg.tile_h)
+            bins = bin_triangles_materialized(setup, cfg.tiles_x, cfg.tiles_y,
+                                              cfg.max_tiles_per_tri, cfg.max_tris_per_tile,
+                                              cfg.max_big_tris)
+            records = raster_gbuf.pack_gbuf_payload(setup, dl.tri_vtx, dl.tri_material,
+                                                    tri_scale, world_pos, world_nrm, uvs)
+            g = raster_gbuf.rasterize_gbuffer_pallas(records, bins, cfg.width, cfg.height,
+                                                     init_depth=depth)
+            depth = g.depth if depth is None else depth
+
+    calls = capture((raster_gbuf.KERNEL,), frame)
+    require(len(calls["raster_gbuf"]) == 2 and any(int(a[3][0]) > 0
+                                                   for a, _ in calls["raster_gbuf"]),
+            "the materialised-bin replay must walk a non-empty big list")
+    return calls
+
+
+# The bench's stress cell (bench.py:276, 284-286): the stress scene at its
+# default size, RenderConfig(1920, 1080, opaque_block_cap_frac=0.8125).
+# Its camera is bench.py::make_rig's, which smooths toward CameraRig's
+# targets on every update (reference scene/camera.py:151-165): the sweep
+# sets target yaw 0.02 i and updates once a frame for 10 frames, and the
+# diagnostics guard updates once more at target yaw 0.18 (bench.py:147-149,
+# 206-216). BENCH_r05.json (the reference on a TPU) printed for that guard:
+STRESS_REFERENCE = {"clip_unresolved": 196, "clip_round_demand": (510, 156, 26),
+                    "clip_round_caps": (608, 162, 41)}
+
+
+def bench_rig(sweep_updates: int):
+    """bench.py::make_rig's CameraRig after ``sweep_updates`` of the bench
+    sweep's smoothed updates (the reference's CameraRig.update at dt 1/60:
+    position half-time 0.5, rotation 0.25, toward target position
+    (0, 3, 1), pitch -15 degrees and the sweep's target yaw; update n
+    aims at yaw 0.02 min(n, 9))."""
+    import math
+
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
+    rig.camera.pitch = -0.25
+    target_pos = np.array([0.0, 3.0, 1.0], np.float32)
+    target_pitch = math.radians(-15.0)
+
+    def factor(half_time):
+        return 1.0 - math.exp(-math.log(2.0) * (1.0 / 60.0) / (half_time / 4.0))
+
+    pf, rf = factor(0.5), factor(0.25)
+    for n in range(sweep_updates):
+        target_yaw = 0.02 * min(n, 9)
+        rig.camera.position = (rig.camera.position
+                               + (target_pos - rig.camera.position) * pf).astype(np.float32)
+        rig.camera.yaw += (target_yaw - rig.camera.yaw) * rf
+        rig.camera.pitch += (target_pitch - rig.camera.pitch) * rf
+    return rig
+
+
+def stress_phase(card: str, max_err: dict) -> dict:
+    """Phase 9, the stress frame: kernel parity on every call of the
+    frame, the launches, the clip diagnostics at both ends of the bench's
+    sweep, the golden, the timing. -> the frame's launch counts."""
+    import torch
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render import frame as frame_mod
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+    from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
+    from transmission_renderer_tpu_torch.utils.png import read_png
+    from transmission_renderer_tpu_torch.utils.profiling import CLIP_PASS_NAMES, PASS_NAMES
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    scene, dl, flags = build_stress_scene().finish_bundle(device=dev)
+    cfg = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125)
+    lights = pack_lights([
+        point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
+        point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
+    ], device=dev)
+
+    def params_of(rig):
+        return make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                                 rig.sun_dir(), device=dev)
+
+    params = params_of(bench_rig(0))
+    far = bench_rig(11)
+    params_far = params_of(far)
+    log(f"stress: {int(dl.tri_vtx.shape[0])} triangles, {cfg.width}x{cfg.height}, "
+        f"opaque_block_cap_frac {cfg.opaque_block_cap_frac}, built in "
+        f"{time.perf_counter() - t0:.2f} s, flags {flags}; sweep's far end: camera at "
+        f"{far.camera.position.tolist()}, yaw {far.camera.yaw:.6f}, pitch "
+        f"{far.camera.pitch:.6f}")
+
+    def frame(p=params, c=cfg, **kw):
+        return render_frame(scene, dl, p, lights, c, flags, **kw)
+
+    handles = port_handles()[:4]
+    # (a) every kernel call of the frame through the kernel and its plain
+    # version: kernel 1 bit for bit on all ten, the peel bounds included
+    calls = capture(handles, frame)
+    for i, (a, kw) in enumerate(calls["raster_gbuf"]):
+        log(f"stress raster_gbuf[{i}]: pass_class {kw.get('pass_class')}, "
+            f"max_depth {kw.get('max_depth_tiles') is not None}, "
+            f"seeded {kw.get('init_depth_tiles') is not None}")
+    check_parity(handles, calls, max_err, "stress ")
+
+    # (b) one frame with the counts reset: the reference's call sequence
+    # (frame.py:1186-1197, 1417-1456): kernel 1 for the opaque raster, the
+    # class-2 peel's first round and 3 re-races, the sparse transmissive
+    # raster, the class-3 peel's first round and 3 re-races (the scene has
+    # no class-3 triangle; the reference peels whenever alpha clip is on);
+    # the diffuse tap once (the glass samples no texture), two shades, one
+    # refraction fetch
+    (img, diag), launches = count_launches(handles, frame, return_diagnostics=True)
+    log(f"stress launches per frame: {launches}")
+    expect = {"raster_gbuf": 10, "tap_finish": 1, "shade": 2, "transmission_fetch": 1}
+    require(launches == expect, f"stress launch counts {launches}, expected {expect}")
+
+    # (c) the diagnostics at both ends of the bench's sweep, the unresolved
+    # pixels' mask recorded from the peel
+    masks = []
+    peel = frame_mod._rasterize_clip_peeled
+
+    def recording_peel(*args, **kwargs):
+        out = peel(*args, **kwargs)
+        masks.append(out[4])
+        return out
+
+    frame_mod._rasterize_clip_peeled = recording_peel
+    try:
+        diags = {}
+        for tag, p in (("yaw 0", params), ("sweep end", params_far)):
+            masks.clear()
+            img_p, d = frame(p, return_diagnostics=True)
+            diags[tag] = (img_p, d, masks[0] | masks[1])
+    finally:
+        frame_mod._rasterize_clip_peeled = peel
+    for tag, (_, d, _) in diags.items():
+        got = diagnostics_dict(d)
+        log(f"stress diagnostics at {tag}: clip_unresolved {got['clip_unresolved']}, "
+            f"clip_tiles {got['clip_tiles']}/{got['clip_tile_capacity']}, round demand "
+            f"{list(got['clip_round_demand'])}, caps {list(got['clip_round_caps'])}, "
+            f"opaque_blocks {got['opaque_blocks']}/{got['opaque_block_capacity']}, "
+            f"transmission tiles {got['transmission_tiles']}/"
+            f"{got['transmission_tile_capacity']}, transmission blocks "
+            f"{got['transmission_blocks']}/{got['transmission_block_capacity']}; all {got}")
+        require(got["clip_round_caps"] == STRESS_REFERENCE["clip_round_caps"],
+                f"stress caps {got['clip_round_caps']}")
+        require(got["clip_tile_capacity"] == 1013, "clip tile cap: ceil(2025 * 0.5)")
+        # nothing else may drop work: only the peel's caps bind
+        others = d._replace(clip_unresolved=0)
+        require(not others.overflowed(), f"stress capacity overflow at {tag}: {d}")
+    log(f"stress reference (BENCH_r05.json, on a TPU, the bench's guard at the sweep's "
+        f"end): clip_unresolved {STRESS_REFERENCE['clip_unresolved']}, round demand "
+        f"{list(STRESS_REFERENCE['clip_round_demand'])}, caps "
+        f"{list(STRESS_REFERENCE['clip_round_caps'])}")
+
+    # (d) the image, and the golden with the peel run to convergence
+    require(tuple(img.shape) == (1080, 1920, 3), f"stress image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), "stress image has non-finite values")
+    lo, hi = float(img.min()), float(img.max())
+    require(0.0 <= lo and hi <= 1.0, f"stress image outside [0, 1]: [{lo}, {hi}]")
+    golden = read_png(os.path.join(ROOT, "tests", "goldens", "stress_hd.png"))[..., :3] / 255.0
+    cfg_conv = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
+                            alpha_clip_rounds=8, clip_retile_cap_frac=1.0)
+    img_conv, d_conv = frame(params, cfg_conv, return_diagnostics=True)
+    log(f"stress converged (alpha_clip_rounds 8, clip_retile_cap_frac 1.0): diagnostics "
+        f"{diagnostics_dict(d_conv)}")
+    require(int(d_conv.clip_unresolved) == 0 and not d_conv.overflowed(),
+            "stress: the converged peel left pixels unresolved or overflowed")
+    rmse_conv = float(np.sqrt(np.mean((linear_to_srgb(img_conv.cpu().numpy()) - golden) ** 2)))
+    srgb = linear_to_srgb(diags["yaw 0"][0].cpu().numpy())
+    rmse = float(np.sqrt(np.mean((srgb - golden) ** 2)))
+    # the 8x128 tiles holding an unresolved pixel of either peel
+    bad = diags["yaw 0"][2].cpu().numpy().reshape(135, 8, 15, 128).any(axis=(1, 3))
+    keep = ~np.repeat(np.repeat(bad, 8, axis=0), 128, axis=1)
+    rmse_keep = float(np.sqrt(np.mean((srgb[keep] - golden[keep]) ** 2)))
+    log(f"stress golden stress_hd.png: sRGB RMSE {rmse_conv:.6f} converged (limit 4e-3); "
+        f"at the bench config {rmse:.6f} over the whole frame, {rmse_keep:.6f} outside "
+        f"the {int(bad.sum())} tiles holding unresolved pixels")
+    require(rmse_conv < 4e-3, f"stress sRGB RMSE {rmse_conv} vs golden")
+
+    # (e) timing, passes, kernel 1 against its bound
+    times = timed_frames(frame, 2, 10)
+    med = statistics.median(times)
+    log(f"stress frame 1920x1080 on [{card}]: median {med:.3f} ms/frame "
+        f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
+    rounds = tuple(f"clip_round_{r}" for r in range(1, cfg.alpha_clip_rounds))
+    profile_passes(frame, card, PASS_NAMES + CLIP_PASS_NAMES + rounds)
+    h = raster_gbuf.KERNEL
+    k_ms, h_ms = kernel_ms(h, calls[h.name])
+    p_ms = plain_ms(h, calls[h.name])
+    per_call = gbuf_counts(calls[h.name])
+    works = [kernel_work(h.name, c, pc) for c, pc in zip(calls[h.name], per_call)]
+    b_ms, b_by = bound_of(works)
+    log(f"stress kernel raster_gbuf on [{card}]: {k_ms:.3f} ms/frame on the device (host "
+        f"{h_ms:.3f}), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms by {b_by} "
+        f"({sum(w[0] for w in works)} bytes, {sum(w[1] for w in works)} operations), "
+        f"{b_ms / k_ms:.4f} of the bound reached, {len(calls[h.name])} calls per frame; "
+        f"covering pairs {[c[0] for c in per_call]}, pixels with a winner "
+        f"{[c[1] for c in per_call]}")
+    return launches
 
 
 def port_handles() -> tuple:
@@ -844,9 +1112,7 @@ def main() -> int:
         if h.name == "bvh_occlusion":
             per_call = walk_counts
         elif h.name == "raster_gbuf":  # covering pixel-record pairs, pixels with a winner
-            per_call = [(raster_gbuf.covered_pairs(*a[:3], *a[4:6], kw.get("pass_class")),
-                         int((h.replay((a, kw), True)["tri"] >= 0).sum()))
-                        for a, kw in rt_calls[h.name]]
+            per_call = gbuf_counts(rt_calls[h.name])
             pairs = [raster_runs(h.name, c)[1] * 1024 for c in rt_calls[h.name]]
             log(f"rt kernel raster_gbuf per call: pixel-record pairs {pairs}, where the "
                 f"record covers the pixel {[p[0] for p in per_call]}, pixels with a winner "
@@ -993,8 +1259,22 @@ def main() -> int:
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
 
+    # (f) kernel 1 on the frame's own materialised bins: every tile walks
+    # the big list before its run, as the reference's kernel does
+    # (raster_pallas_gbuf.py:339-345); no frame reaches the big list
+    # through kernel 1 otherwise
+    big_calls = gbuf_on_materialised_bins(scene, dl, params, cfg_vis)
+    for (a, kw) in big_calls["raster_gbuf"]:
+        log(f"vis kernel-1 replay: big list {int(a[3][0])} records walked by each of "
+            f"{a[1].numel()} tiles, seeded {kw.get('init_depth_tiles') is not None}")
+    check_parity((raster_gbuf.KERNEL,), big_calls, max_err, "vis materialised bins ")
+
+    # ---- 9. the stress frame ----------------------------------------------------
+    stress_rows = stress_phase(card, max_err)
+
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]
+    log(json.dumps({"stress_launches": stress_rows}))
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

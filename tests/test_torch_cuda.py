@@ -4,7 +4,7 @@ with them, and with them traced at half resolution (kernel 5, and kernel
 3 reading shadow factors, upsampled ones in the last); kernel 5 alone on
 a small mesh, also with half the rays dead; kernel 1 alone on runs of
 several hundred records with ties across segments, a seeded pass and a
-depth-peel bound; kernel 6 (the visibility raster) in both walk
+depth-peel bound, and with a big list walked before the runs; kernel 6 (the visibility raster) in both walk
 orders on random scenes, and the visibility-buffer frame of each scene.
 Marked ``cuda``: on a host without a CUDA device they skip (the check
 runs inside the fixture, never at import).
@@ -351,6 +351,162 @@ def test_raster_gbuf_plan_matches_work_list(case):
             tuple(p.cpu() for p in payload), ids.cpu(), ts.cpu(), 0, w, h, **kw)
         for key, r in ref.items():
             assert torch.equal(out[key].cpu(), r), key
+
+
+def _gbuf_big_list_case(dev, w=256, h=64):
+    """Kernel 1's inputs over materialised bins (tile reach 2: every larger
+    triangle is on the big list) of _vis_scene's triangles (two
+    floor triangles and crowded small ones), the big list extended with
+    copies of run records under other materials (exact ties between a
+    big record and a run record) -> (payload, tile_start, big_count)."""
+    from transmission_renderer_tpu_torch.ops import raster, raster_gbuf
+
+    clip_np, tris_np = _vis_scene(5, n_tris=300)
+    rng = np.random.default_rng(2)
+    t = len(tris_np)
+    clip = torch.from_numpy(clip_np).to(dev)
+    tris = torch.from_numpy(tris_np).to(dev)
+    setup = raster.setup_triangles(clip, tris, torch.ones(t, dtype=torch.bool, device=dev),
+                                   w, h, 128, 8)
+    bins = raster.bin_triangles_materialized(setup, w // 128, h // 8, 2, 512, 16)
+    nv = clip_np.shape[0]
+    pos = torch.from_numpy(rng.uniform(-2, 2, (nv, 3)).astype(np.float32)).to(dev)
+    nrm = torch.from_numpy(rng.normal(size=(nv, 3)).astype(np.float32)).to(dev)
+    uv = torch.from_numpy(rng.uniform(0, 1, (nv, 2)).astype(np.float32)).to(dev)
+    cls = torch.from_numpy(rng.integers(0, 2, t).astype(np.int32)).to(dev)
+    mat = torch.arange(t, dtype=torch.int32, device=dev) % 7
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, t).astype(np.float32)).to(dev)
+    rec = raster_gbuf.pack_gbuf_payload(setup, tris, mat, scale, pos, nrm, uv, cls)
+    rows, big_rows = raster_gbuf.gather_gbuf_payload(rec, bins)
+    nbig = int(bins.big_tri_count)
+    runs = rows.reshape(-1, raster_gbuf.REC_F32)
+    live = runs[runs[:, 15] >= 0]
+    copies = live[torch.from_numpy(rng.permutation(live.shape[0])[:9]).to(dev)].clone()
+    copies[:, 40] = 100.0 + torch.arange(copies.shape[0], dtype=torch.float32, device=dev)
+    big = torch.cat([big_rows.reshape(-1, raster_gbuf.REC_F32)[:nbig], copies])
+    big = torch.cat([big, big.new_zeros(big.shape[0] % 2, raster_gbuf.REC_F32)])
+    count = torch.tensor([nbig + copies.shape[0]], dtype=torch.int32, device=dev)
+    assert nbig >= 2
+    return (rows, big.reshape(-1, 128).contiguous()), bins.tile_start, count
+
+
+@pytest.mark.parametrize("case", ["all", "class1-seeded", "peel"])
+def test_raster_gbuf_big_list_matches_plain(case):
+    """Kernel 1 with a big list walked before every tile's run (the
+    reference's big_body), ties between a big record and a run record
+    included: every channel equals the plain version's bit for bit, on
+    every tile, under a class filter with a seed, and under a peel bound
+    at exactly the front depth on half the pixels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+
+    w, h = 256, 64
+    dev = torch.device("cuda")
+    payload, ts, nbig = _gbuf_big_list_case(dev)
+    ids = torch.arange(16, dtype=torch.int32, device=dev)
+    kw = {}
+    if case != "all":
+        ids = torch.tensor([9, 11, 8, 9, 13, 14, 0], dtype=torch.int32, device=dev)
+        front = raster_gbuf.rasterize_gbuffer_tiles(payload, ids, ts, nbig, w, h)["depth"]
+        rng = np.random.default_rng(4)
+        half = torch.from_numpy(rng.uniform(size=tuple(front.shape)) < 0.5).to(dev)
+        bound = torch.where(half, front, front * 1.3).contiguous()
+        kw = ({"init_depth_tiles": bound * 0.5, "pass_class": 1} if case == "class1-seeded"
+              else {"max_depth_tiles": bound})
+    got = raster_gbuf.rasterize_gbuffer_tiles(payload, ids, ts, nbig, w, h, **kw)
+    cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    ref = raster_gbuf.rasterize_gbuffer_tiles(tuple(p.cpu() for p in payload), ids.cpu(),
+                                              ts.cpu(), nbig.cpu(), w, h, **cpu)
+    for key, r in ref.items():
+        assert torch.equal(got[key].cpu(), r), key
+    if case == "all":
+        assert (ref["material"] >= 100).any()  # a big copy won its tie
+
+
+def _random_gbuf_inputs(dev, seed=5, w=256, h=64, n_v=60, n_t=60):
+    """tests/test_torch_raster_gbuf.py::_inputs (random triangles, some
+    near or behind the camera, both windings, two classes) binned into
+    materialised bins with a tile reach of 2 -> (records, bins)."""
+    from transmission_renderer_tpu_torch.ops import raster, raster_gbuf
+    from transmission_renderer_tpu_torch.scene.camera import (
+        look_at_rh, perspective_matrix_reversed)
+
+    rng = np.random.default_rng(seed)
+    pv = perspective_matrix_reversed(w, h) @ look_at_rh(
+        (0.0, 1.0, 5.0), (0.0, 1.0, 0.0), (0, 1, 0))
+    pos = rng.uniform(-2, 2, (n_v, 3)).astype(np.float32)
+    pos[:4, 2] = rng.uniform(4.0, 7.0, 4)
+    nrm = rng.normal(size=(n_v, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    uv = rng.uniform(0, 1, (n_v, 2)).astype(np.float32)
+    tris = rng.integers(0, n_v, (n_t, 3))
+    tris = tris[(tris[:, 0] != tris[:, 1]) & (tris[:, 1] != tris[:, 2])
+                & (tris[:, 0] != tris[:, 2])].astype(np.int32)
+    mat = rng.integers(0, 5, len(tris)).astype(np.int32)
+    scale = rng.uniform(0.5, 2.0, len(tris)).astype(np.float32)
+    cls = rng.integers(0, 2, len(tris)).astype(np.int32)
+    enabled = rng.uniform(size=len(tris)) < 0.9
+    ph = np.concatenate([pos, np.ones((n_v, 1), np.float32)], -1)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    setup = raster.setup_triangles(t((ph @ pv.T).astype(np.float32)), t(tris), t(enabled),
+                                   w, h, 128, 8)
+    bins = raster.bin_triangles_materialized(setup, w // 128, h // 8, 2, 64, 16)
+    rec = raster_gbuf.pack_gbuf_payload(setup, t(tris), t(mat), t(scale), t(pos), t(nrm),
+                                        t(uv), t(cls))
+    return rec, bins
+
+
+@pytest.mark.parametrize("pass_class,pos_derivs,uv_channels", [
+    (None, True, True), (1, False, True), (0, False, False)])
+def test_raster_gbuf_pallas_big_list_matches_plain(pass_class, pos_derivs, uv_channels):
+    """rasterize_gbuffer_pallas over materialised bins on the inputs of
+    tests/test_torch_raster_gbuf.py::test_plain_raster_walks_the_big_list_as_the_reference
+    (which holds the plain version to the reference's kernel): the CUDA
+    kernel, reading the big list's count on the card, gives every G-buffer
+    field bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+
+    out = []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        rec, bins = _random_gbuf_inputs(dev)
+        assert int(bins.big_tri_count) > 0
+        out.append(raster_gbuf.rasterize_gbuffer_pallas(
+            rec, bins, 256, 64, pass_class=pass_class, pos_derivs=pos_derivs,
+            uv_channels=uv_channels))
+    for f, a, b in zip(out[1]._fields, out[0], out[1]):
+        assert torch.equal(a.cpu(), b), f
+
+
+def test_raster_gbuf_plan_matches_work_list_with_a_big_list():
+    """The plan's words with a big list: every slot walks nbig + its run,
+    so every slot is in the order, by the segment count of that list."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+
+    w, h = 256, 64
+    dev = torch.device("cuda")
+    payload, ts, nbig = _gbuf_big_list_case(dev)
+    ids = torch.arange(16, dtype=torch.int32, device=dev)
+    out, keys = raster_gbuf._raster_launch(payload, ids, ts, nbig, w, h)
+    torch.cuda.synchronize()
+    k = ids.numel()
+    plan = keys[k * raster_gbuf.TILE_H * raster_gbuf.TILE_W:].cpu().view(torch.int32).long()
+    _, count = raster_gbuf._tile_runs(ts.cpu(), ids.cpu(), 1, None)
+    lengths = int(nbig[0]) + count
+    order, seg_cum = raster_gbuf.gbuf_work_list(lengths)
+    n_slots = int(plan[1])
+    got_order, got_cum = plan[2 : 2 + n_slots], plan[2 + k : 2 + k + n_slots]
+    assert n_slots == order.numel() == k
+    assert sorted(got_order.tolist()) == sorted(order.tolist())
+    nseg = (lengths + raster_gbuf.SEG - 1) // raster_gbuf.SEG
+    bucket = torch.clamp(nseg, max=raster_gbuf.PLAN_BUCKETS - 1)
+    assert torch.equal(bucket[got_order], bucket[order])
+    assert torch.equal(got_cum, torch.cumsum(nseg[got_order], 0))
+    assert int(plan[0]) >= int(seg_cum[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -192,9 +192,12 @@ def test_sparse_block_helpers_match_reference():
 
 def test_unported_branches_refuse():
     """Branches outside the port raise NotImplementedError (no silent
-    detour): on the kernel branch the options it lacks, a width that is
-    not a multiple of 128 and alpha clip; on the visibility-buffer branch
-    alpha clip and ray-traced shadows."""
+    detour): the debug views and the quality flags, a width that is not a
+    multiple of 128 and the dense transmission shade on the kernel branch;
+    alpha clip and ray-traced shadows on the visibility-buffer branch.
+    (The block-sparse opaque shade, the 256-tile floor's dense paths and
+    kernel-branch alpha clip render since they were ported:
+    tests/test_torch_stress_frame.py::test_former_refusals_render.)"""
     builder = build_dragon_scene(stacks=8, sectors=16)
     scene, dl, flags = builder.finish_bundle(device="cpu")
     rig = _rig(*CAM)
@@ -202,19 +205,18 @@ def test_unported_branches_refuse():
     vis = dataclasses.replace(CFG, use_pallas_raster=False)
     for bad in (dataclasses.replace(CFG, debug_clusters=True),
                 dataclasses.replace(vis, debug_clusters=True),
-                dataclasses.replace(CFG, opaque_block_cap_frac=0.5),
                 dataclasses.replace(CFG, half_res_refraction=True),
-                dataclasses.replace(CFG, sparse_raster_tile_floor=256),
+                dataclasses.replace(CFG, sparse_raster_tile_floor=256,
+                                    transmission_block_cap_frac=None),
                 dataclasses.replace(CFG, width=120)):
         params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,
                                    rig.sun_dir(), device="cpu")
         with pytest.raises(NotImplementedError):
             render_frame(scene, dl, params, lights, bad, flags)
-    for cfg in (CFG, vis):
-        params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
-                                   rig.sun_dir(), device="cpu")
-        with pytest.raises(NotImplementedError):
-            render_frame(scene, dl, params, lights, cfg, flags._replace(has_alpha_clip=True))
+    params = make_frame_params(vis, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        render_frame(scene, dl, params, lights, vis, flags._replace(has_alpha_clip=True))
     with pytest.raises(NotImplementedError):
         render_frame(scene, dl, params, lights,
                      dataclasses.replace(vis, ray_traced_shadows=True), flags,

@@ -413,3 +413,110 @@ def test_segmented_race_on_an_empty_tile_list():
     ids = torch.zeros(0, dtype=torch.int32)
     got = raster_gbuf.rasterize_gbuffer_tiles_plain(payload, ids, ts, 0, W, H, segment=3)
     assert got["depth"].shape == (0, 8, 128)
+
+
+# ---------------------------------------------------------------------------
+# the big list: materialised bins, whose big triangles every tile walks
+# before its run (raster_pallas_gbuf.py:339-345)
+# ---------------------------------------------------------------------------
+
+def _materialised(d):
+    """Both packages' materialised binning of the inputs, with a tile
+    reach of 2 so that larger triangles go to the big list."""
+    setup, _, ref_rec = _ref_pipeline(d)
+    ref_bins = jraster.bin_triangles(setup, W // 128, H // 8, 2, 64, 16, materialize=True)
+    psetup, _, rec = _port_pipeline(d)
+    bins = raster.bin_triangles_materialized(psetup, W // 128, H // 8, 2, 64, 16)
+    return ref_bins, ref_rec, bins, rec
+
+
+@pytest.mark.parametrize("pass_class,pos_derivs,uv_channels", [
+    (None, True, True), (1, False, True), (0, False, False)])
+def test_plain_raster_walks_the_big_list_as_the_reference(pass_class, pos_derivs, uv_channels):
+    """rasterize_gbuffer_pallas over materialised bins with a non-empty
+    big list (big records walked first by every tile, class-filtered per
+    record) vs the reference's kernel in interpret mode."""
+    d = _inputs(5)
+    ref_bins, ref_rec, bins, rec = _materialised(d)
+    np.testing.assert_array_equal(bins.big_tri_ids.numpy(), np.asarray(ref_bins.big_tri_ids))
+    assert int(bins.big_tri_count) == int(ref_bins.big_tri_count) > 0
+    ref = jgbuf.rasterize_gbuffer_pallas(ref_rec, ref_bins, W, H, pass_class=pass_class,
+                                         interpret=True, pos_derivs=pos_derivs,
+                                         uv_channels=uv_channels)
+    got = raster_gbuf.rasterize_gbuffer_pallas(rec, bins, W, H, pass_class=pass_class,
+                                               pos_derivs=pos_derivs, uv_channels=uv_channels)
+    for f in ref._fields:
+        a, r = getattr(got, f).numpy(), np.asarray(getattr(ref, f))
+        if f in ("tri_id", "material_id", "valid"):
+            np.testing.assert_array_equal(a, r, err_msg=f)
+        elif f == "depth":
+            np.testing.assert_allclose(a, r, atol=1e-7, rtol=0, err_msg=f)
+        else:
+            np.testing.assert_allclose(a, r, atol=1e-4, rtol=1e-3, err_msg=f)
+    # big triangles win pixels
+    big = set(bins.big_tri_ids[: int(bins.big_tri_count)].tolist())
+    assert any(t in big for t in got.tri_id.unique().tolist())
+
+
+def _big_list_case():
+    """(payload, tile_start, big_count) of materialised bins whose big
+    list also holds copies of records from the tiles' runs, with other
+    materials: a copy ties its original's depth exactly, and walks first."""
+    _, _, bins, rec = _materialised(_inputs(9))
+    rows, big_rows = raster_gbuf.gather_gbuf_payload(rec, bins)
+    nbig = int(bins.big_tri_count)
+    runs = rows.reshape(-1, raster_gbuf.REC_F32)
+    live = runs[runs[:, 15] >= 0]
+    copies = live[torch.randperm(live.shape[0], generator=torch.Generator().manual_seed(3))[:9]]
+    copies = copies.clone()
+    copies[:, 40] = 100.0 + torch.arange(copies.shape[0], dtype=torch.float32)
+    big = torch.cat([big_rows.reshape(-1, raster_gbuf.REC_F32)[:nbig], copies])
+    big = torch.cat([big, big.new_zeros(big.shape[0] % 2, raster_gbuf.REC_F32)])
+    count = torch.tensor([nbig + copies.shape[0]], dtype=torch.int32)
+    return (rows, big.reshape(-1, 128)), bins.tile_start, count
+
+
+@pytest.mark.parametrize("segment", [1, 3, 32])
+@pytest.mark.parametrize("peel", [False, True])
+def test_segmented_race_with_a_big_list_equals_sequential(segment, peel):
+    """With a big list (ties between a big record and a run record
+    included), every channel of the segmented race equals the sequential
+    walk's bit for bit, with and without a peel bound at the front depth."""
+    payload, ts, nbig = _big_list_case()
+    ids = torch.tensor([3, 0, 9, 3, 15, 6], dtype=torch.int32)
+    kw = {}
+    if peel:
+        front = raster_gbuf.rasterize_gbuffer_tiles_plain(payload, ids, ts, nbig, W, H)["depth"]
+        half = torch.from_numpy(np.random.default_rng(6).uniform(size=front.shape) < 0.5)
+        kw["max_depth_tiles"] = torch.where(half, front, front * 1.2)
+    ref = raster_gbuf.rasterize_gbuffer_tiles_plain(payload, ids, ts, nbig, W, H, **kw)
+    got = raster_gbuf.rasterize_gbuffer_tiles_plain(payload, ids, ts, nbig, W, H,
+                                                     segment=segment, **kw)
+    for name, r in ref.items():
+        assert torch.equal(got[name], r), name
+    # a copy in the big list won pixels its original ties
+    assert (ref["material"] >= 100).any()
+
+
+def test_covered_pairs_counts_the_big_list():
+    """covered_pairs with a big list counts each tile's big records too:
+    the count with the list minus the count without it equals, summed
+    over the tiles, the big records' covered pixels."""
+    payload, ts, nbig = _big_list_case()
+    ids = torch.arange((W // 128) * (H // 8), dtype=torch.int32)
+    with_big = raster_gbuf.covered_pairs(payload, ids, ts, W, H, big_count=nbig)
+    without = raster_gbuf.covered_pairs(payload, ids, ts, W, H)
+    big = payload[1].reshape(-1, raster_gbuf.REC_F32)[: int(nbig)].numpy()
+    nx, ny = (a.numpy() for a in raster_gbuf._pixel_ndc(ids, W, H))
+
+    def covered(e, a, b):
+        return (e > 0) | ((e == 0) & ((a > 0) | ((a == 0) & (b > 0))))
+
+    want = 0
+    for r in big:
+        cov = np.ones(nx.shape, bool)
+        for j in range(3):
+            a, b, c = r[3 * j : 3 * j + 3]
+            cov &= covered(a * nx + b * ny + c, a, b)
+        want += int(cov.sum())
+    assert with_big - without == want > 0

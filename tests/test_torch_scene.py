@@ -2,7 +2,8 @@
 JAX-free render.
 
 The port's SceneBuilder / build_dragon_scene must freeze exactly the
-arrays the reference freezes (ints and floats equal, the bfloat16 atlas
+arrays the reference freezes (build_stress_scene's are held in
+tests/test_torch_stress_frame.py) (ints and floats equal, the bfloat16 atlas
 bit-equal); the bridge must carry the reference's arrays over unchanged;
 and the port must build and render with jax, PIL, ml_dtypes and the JAX
 package itself absent, as on the machine with the card. The port's own
@@ -161,6 +162,14 @@ def test_port_runs_without_jax_pil_ml_dtypes():
         assert bool(torch.isfinite(img_vis).all()) and not diag.overflowed()
         assert int(diag.transmission_tiles) == 0 and int(diag.transmission_blocks) > 0
         assert float((img_vis - img).abs().mean()) < 0.01
+        # the stress scene: alpha-clip depth peeling on the kernel branch
+        from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+        scene, dl, flags = build_stress_scene(grid=2).finish_bundle(device="cpu")
+        clip_cfg = dataclasses.replace(cfg, opaque_block_cap_frac=1.0)
+        img_clip, diag = render_frame(scene, dl, params, lights, clip_cfg, flags,
+                                      return_diagnostics=True)
+        assert flags.has_alpha_clip and bool(torch.isfinite(img_clip).all())
+        assert len(diag.clip_round_demand) == 3 and int(diag.opaque_blocks) > 0
         assert read_png("tests/goldens/dragon.png").shape == (72, 128, 4)
         loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
         assert not loaded & {"jax", "transmission_renderer_tpu"}, loaded

@@ -3,12 +3,14 @@
 //
 // Replaces the TPU kernel transmission_renderer_tpu/ops/raster_pallas_gbuf.py
 // ::_kernel (pl.pallas_call at raster_pallas_gbuf.py:468). Per 8x128 tile
-// it walks the tile's run of class-split, depth-race-ordered records (64
-// f32 each: [0:9] adjugate edge rows, [9:12] clip z, [12:15] clip w, [15]
-// tri id + class, [16:40] three vertices of pos/nrm/uv, [40] material,
-// [41] scale), races reversed-Z GREATER against the seeded depth (and
-// below max_depth), and interpolates the winner's attributes and their
-// analytic screen-space derivatives.
+// it walks one list of records (64 f32 each: [0:9] adjugate edge rows,
+// [9:12] clip z, [12:15] clip w, [15] tri id + class, [16:40] three
+// vertices of pos/nrm/uv, [40] material, [41] scale): the big list (the
+// big_count records every tile walks, as the reference's big_body does
+// before the tile's run; none on class-split bins), then the tile's run of
+// class-split, depth-race-ordered records. It races reversed-Z GREATER
+// against the seeded depth (and below max_depth), and interpolates the
+// winner's attributes and their analytic screen-space derivatives.
 //
 // What bounds it: the pixel-record tests (three edge functions, the w and
 // z sums, a divide, 8 compares per pixel and record), and the run lengths
@@ -17,19 +19,20 @@
 // leaves the card waiting on its busiest tile. The design:
 //
 // - The winner is the record of maximum depth among those passing the
-//   filters, ties to the smallest record index. So a run is cut into
+//   filters, ties to the smallest list position (the big list holds
+//   positions [0, nbig), the run the rest). So a list is cut into
 //   segments of at most `segment` records (ops/raster_gbuf.py::SEG), and
 //   each (tile, segment) item is raced on its own. A block keeps per
-//   pixel only the best (depth, record index) and merges it with one
+//   pixel only the best (depth, list position) and merges it with one
 //   64-bit atomicMax on the key (float bits of depth + 0 << 32) |
-//   (2^32 - 1 - index): the + 0 turns -0 into +0, so the unsigned order
-//   of the key is the depth order, ties to the smaller index. 0 means
-//   "no winner". The key buffer comes zeroed from the wrapper.
+//   (2^32 - 1 - position): the + 0 turns -0 into +0, so the unsigned
+//   order of the key is the depth order, ties to the smaller position. 0
+//   means "no winner". The key buffer comes zeroed from the wrapper.
 // - A persistent grid (as many 256-thread blocks as are resident) pulls
 //   items from an atomic counter. The item list is compact and built on
 //   the card by a one-block plan kernel (work_list.cuh, which kernel 6
 //   shares): the tile slots with a non-empty
-//   run, bucketed by segment count, most segments first (a counting sort;
+//   list, bucketed by segment count, most segments first (a counting sort;
 //   runs of 63 segments and more share the top bucket), and the running
 //   count of segments in that order. So the heaviest segments start in
 //   the first wave, the host never waits to learn how many items there
@@ -81,11 +84,12 @@ __device__ __forceinline__ bool covered(float e, float a, float b) {
     return (e > 0.0f) || ((e == 0.0f) && tl);
 }
 
-// [start, end) of tile slot k's run in the sorted records
+// [start, end) of a tile's run in the sorted records: its class's run, or
+// every class's (no class filter, or one-class bins)
 __device__ __forceinline__ void tile_run(const int* __restrict__ tile_start, int tile,
                                          int num_classes, int pass_class, int& start,
                                          int& end) {
-    if (pass_class < 0) {
+    if (pass_class < 0 || num_classes == 1) {
         start = tile_start[num_classes * tile];
         end = tile_start[num_classes * tile + num_classes];
     } else {
@@ -94,64 +98,84 @@ __device__ __forceinline__ void tile_run(const int* __restrict__ tile_start, int
     }
 }
 
-// Stage records [base, base + n) of the race's 16 floats into one buffer.
-__device__ __forceinline__ void stage_chunk(float4 (*buf)[RACE_F4], const float* __restrict__ recs,
-                                            int base, int n) {
+// Record v of a slot's list: the big list, then the run from `start`.
+__device__ __forceinline__ const float* list_record(const float* recs, const float* big,
+                                                    int nbig, int start, int v) {
+    return v < nbig ? big + (size_t)v * REC_F32 : recs + (size_t)(start + v - nbig) * REC_F32;
+}
+
+// Stage list records [base, base + n) of a slot, the race's 16 floats of
+// each, into one buffer.
+__device__ __forceinline__ void stage_chunk(float4 (*buf)[RACE_F4], const float* recs,
+                                            const float* big, int nbig, int start, int base,
+                                            int n) {
     for (int i = threadIdx.x; i < n * RACE_F4; i += RACE_THREADS) {
         const int r = i / RACE_F4, part = i % RACE_F4;
-        work_list::cp_async16(&buf[r][part], recs + (size_t)(base + r) * REC_F32 + part * 4);
+        work_list::cp_async16(&buf[r][part],
+                              list_record(recs, big, nbig, start, base + r) + part * 4);
     }
     work_list::cp_async_commit();
 }
 
-// The segment count of slot k's run
-struct RunSegments {
+__device__ __forceinline__ int big_records(const int* big_count) {
+    return big_count ? *big_count : 0;
+}
+
+// The segment count of slot k's list
+struct ListSegments {
     const int* tile_start;
     const int* tile_ids;
+    const int* big_count;
     int num_classes, pass_class, segment;
     __device__ __forceinline__ int operator()(int k) const {
         int start, end;
         tile_run(tile_start, tile_ids[k], num_classes, pass_class, start, end);
-        return (end - start + segment - 1) / segment;
+        return (big_records(big_count) + end - start + segment - 1) / segment;
     }
 };
 
-// The work list (work_list.cuh) over the slots' runs, on one block.
+// The work list (work_list.cuh) over the slots' lists, on one block.
 __global__ void __launch_bounds__(work_list::PLAN_THREADS)
 raster_plan_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_ids,
-                   int k_tiles, int num_classes, int pass_class, int segment, int* plan) {
-    work_list::build(RunSegments{tile_start, tile_ids, num_classes, pass_class, segment},
-                     k_tiles, plan);
+                   const int* __restrict__ big_count, int k_tiles, int num_classes,
+                   int pass_class, int segment, int* plan) {
+    work_list::build(
+        ListSegments{tile_start, tile_ids, big_count, num_classes, pass_class, segment},
+        k_tiles, plan);
 }
 
 __global__ void __launch_bounds__(RACE_THREADS)
-raster_race_kernel(const float* __restrict__ recs, const int* __restrict__ tile_start,
+raster_race_kernel(const float* __restrict__ recs, const float* __restrict__ big,
+                   const int* __restrict__ big_count, const int* __restrict__ tile_start,
                    const int* __restrict__ tile_ids, const float* __restrict__ init_depth,
                    const float* __restrict__ max_depth, int k_tiles, int tiles_x,
                    int num_classes, int pass_class, int segment, float ndc_sx, float ndc_sy,
                    unsigned long long* __restrict__ keys, int* plan) {
     __shared__ __align__(16) float4 stage[2][CHUNK][RACE_F4];
-    __shared__ int item[3];  // tile slot (-1: no items left), begin, end
+    // tile slot (-1: no items left), list begin, list end, run start
+    __shared__ int item[4];
     const int col = threadIdx.x % TILE_W;
     const int row0 = (threadIdx.x / TILE_W) * PX_PER_THREAD;
+    const int nbig = big_records(big_count);
 
     while (true) {
         if (threadIdx.x == 0) {
             int j;
             const int slot = work_list::pull(plan, k_tiles, j);
-            int begin = 0, end = 0;
+            int begin = 0, end = 0, start = 0;
             if (slot >= 0) {
-                int start, stop;
+                int stop;
                 tile_run(tile_start, tile_ids[slot], num_classes, pass_class, start, stop);
-                begin = start + j * segment;
-                end = min(begin + segment, stop);
+                begin = j * segment;
+                end = min(begin + segment, nbig + stop - start);
             }
             item[0] = slot;
             item[1] = begin;
             item[2] = end;
+            item[3] = start;
         }
         __syncthreads();
-        const int slot = item[0], begin = item[1], end = item[2];
+        const int slot = item[0], begin = item[1], end = item[2], start = item[3];
         __syncthreads();  // item[] is rewritten by the next pull
         if (slot < 0) break;
 
@@ -173,10 +197,10 @@ raster_race_kernel(const float* __restrict__ recs, const int* __restrict__ tile_
 
         const int n = end - begin;
         const int n_chunks = (n + CHUNK - 1) / CHUNK;
-        stage_chunk(stage[0], recs, begin, min(CHUNK, n));
+        stage_chunk(stage[0], recs, big, nbig, start, begin, min(CHUNK, n));
         for (int c = 0; c < n_chunks; ++c) {
             if (c + 1 < n_chunks) {
-                stage_chunk(stage[(c + 1) & 1], recs, begin + (c + 1) * CHUNK,
+                stage_chunk(stage[(c + 1) & 1], recs, big, nbig, start, begin + (c + 1) * CHUNK,
                             min(CHUNK, n - (c + 1) * CHUNK));
                 work_list::cp_async_wait<1>();
             } else {
@@ -230,10 +254,12 @@ raster_race_kernel(const float* __restrict__ recs, const int* __restrict__ tile_
 }
 
 __global__ void __launch_bounds__(RESOLVE_THREADS)
-raster_resolve_kernel(const float* __restrict__ recs, const int* __restrict__ tile_ids,
-                      const float* __restrict__ init_depth,
+raster_resolve_kernel(const float* __restrict__ recs, const float* __restrict__ big,
+                      const int* __restrict__ big_count, const int* __restrict__ tile_start,
+                      const int* __restrict__ tile_ids, const float* __restrict__ init_depth,
                       const unsigned long long* __restrict__ keys, int k_tiles, int tiles_x,
-                      float ndc_sx, float ndc_sy, int pos_derivs, int uv_channels,
+                      int num_classes, int pass_class, float ndc_sx, float ndc_sy,
+                      int pos_derivs, int uv_channels,
                       int* __restrict__ tri_out, int* __restrict__ mat_out,
                       float* __restrict__ fout) {
     const size_t plane = (size_t)k_tiles * TILE_PX;
@@ -257,8 +283,11 @@ raster_resolve_kernel(const float* __restrict__ recs, const int* __restrict__ ti
 
     const unsigned long long key = keys[pix];
     if (key != 0ull) {
-        const unsigned int idx = NO_INDEX - (unsigned int)(key & 0xFFFFFFFFull);
-        const float4* src = reinterpret_cast<const float4*>(recs + (size_t)idx * REC_F32);
+        const int v = (int)(NO_INDEX - (unsigned int)(key & 0xFFFFFFFFull));
+        int start, stop;
+        tile_run(tile_start, tile, num_classes, pass_class, start, stop);
+        const float4* src = reinterpret_cast<const float4*>(
+            list_record(recs, big, big_records(big_count), start, v));
         float rec[RES_F4 * 4];
 #pragma unroll
         for (int i = 0; i < RES_F4; ++i) {
@@ -326,10 +355,13 @@ raster_resolve_kernel(const float* __restrict__ recs, const int* __restrict__ ti
 
 }  // namespace
 
-// keys: [k_tiles * 1025 + 1] zeroed 64-bit words: the per-pixel merge
-// keys, then the plan (2 + 2 * k_tiles int32: the race's item counter, the
-// slot count, the slot order, the running segment count).
-TRT_EXPORT int trt_raster_gbuf(const float* recs, const int* tile_start, const int* tile_ids,
+// big / big_count: the big list's records and the device int32 count of
+// them (both null: no big list). keys: [k_tiles * 1025 + 1] zeroed 64-bit
+// words: the per-pixel merge keys, then the plan (2 + 2 * k_tiles int32:
+// the race's item counter, the slot count, the slot order, the running
+// segment count).
+TRT_EXPORT int trt_raster_gbuf(const float* recs, const float* big, const int* big_count,
+                               const int* tile_start, const int* tile_ids,
                                const float* init_depth, const float* max_depth, int k_tiles,
                                int tiles_x, int num_classes, int pass_class, int segment,
                                float ndc_sx, float ndc_sy, int pos_derivs, int uv_channels,
@@ -338,21 +370,22 @@ TRT_EXPORT int trt_raster_gbuf(const float* recs, const int* tile_start, const i
     if (k_tiles > 0) {
         int* plan = reinterpret_cast<int*>(keys + (size_t)k_tiles * TILE_PX);
         raster_plan_kernel<<<1, work_list::PLAN_THREADS, 0, stream>>>(
-            tile_start, tile_ids, k_tiles, num_classes, pass_class, segment, plan);
+            tile_start, tile_ids, big_count, k_tiles, num_classes, pass_class, segment, plan);
         int err = trt_launch_status();
         if (err != 0) return err;
         raster_race_kernel<<<trt_resident_blocks((const void*)raster_race_kernel,
                                                  RACE_THREADS),
                              RACE_THREADS, 0, stream>>>(
-            recs, tile_start, tile_ids, init_depth, max_depth, k_tiles, tiles_x, num_classes,
-            pass_class, segment, ndc_sx, ndc_sy, keys, plan);
+            recs, big, big_count, tile_start, tile_ids, init_depth, max_depth, k_tiles, tiles_x,
+            num_classes, pass_class, segment, ndc_sx, ndc_sy, keys, plan);
         err = trt_launch_status();
         if (err != 0) return err;
         const size_t px = (size_t)k_tiles * TILE_PX;
         raster_resolve_kernel<<<(unsigned)((px + RESOLVE_THREADS - 1) / RESOLVE_THREADS),
                                 RESOLVE_THREADS, 0, stream>>>(
-            recs, tile_ids, init_depth, keys, k_tiles, tiles_x, ndc_sx, ndc_sy, pos_derivs,
-            uv_channels, tri_out, mat_out, fout);
+            recs, big, big_count, tile_start, tile_ids, init_depth, keys, k_tiles, tiles_x,
+            num_classes, pass_class, ndc_sx, ndc_sy, pos_derivs, uv_channels, tri_out, mat_out,
+            fout);
     }
     return trt_launch_status();
 }

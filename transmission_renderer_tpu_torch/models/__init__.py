@@ -2,6 +2,7 @@
 
 from transmission_renderer_tpu_torch.models.procedural import (  # noqa: F401
     build_dragon_scene,
+    build_stress_scene,
     checkerboard_texture,
     make_box_mesh,
     make_plane_mesh,

@@ -2,17 +2,22 @@
 
 Counterpart of ``transmission_renderer_tpu/models/procedural.py``
 (make_sphere_mesh, make_box_mesh, make_plane_mesh, checkerboard_texture,
-_displaced_sphere, build_dragon_scene). Same NumPy construction, same
-seeds, so both packages build identical geometry and textures; the
-other scenes of the reference are later work.
+_displaced_sphere, build_dragon_scene, build_stress_scene). Same NumPy
+construction, same seeds, so both packages build identical geometry and
+textures; the other scenes of the reference are later work.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from transmission_renderer_tpu_torch.config import BUCKET_OPAQUE, BUCKET_TRANSMISSION
+from transmission_renderer_tpu_torch.config import (
+    BUCKET_ALPHA_CLIP,
+    BUCKET_OPAQUE,
+    BUCKET_TRANSMISSION,
+)
 from transmission_renderer_tpu_torch.scene.builder import SceneBuilder
+from transmission_renderer_tpu_torch.scene.types import quat_from_axis_angle
 
 
 def make_sphere_mesh(stacks: int = 32, sectors: int = 64, radius: float = 1.0):
@@ -156,4 +161,73 @@ def build_dragon_scene(
         b.add_material(diffuse_factor=(0.1, 0.7, 0.2, 1.0), roughness_factor=0.5),
         translation=(2.4, 0.8, -4.8), scale=0.8,
     )
+    return b
+
+
+def build_stress_scene(grid: int = 5, seed: int = 11) -> SceneBuilder:
+    """Sponza-analogue stress scene: a checker floor and a grid of
+    spheres, boxes and glass spheres, each with an alpha-clip leaf card
+    (a 128^2 texture of round holes, cutoff 0.5) beside it: instancing,
+    mixed draw buckets and two image sizes in one texture slot."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    checker = b.add_texture(checkerboard_texture(256, 16), srgb=True)
+    size = 128
+    ys, xs = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    leaf = np.zeros((size, size, 4), np.uint8)
+    leaf[..., 1] = 140
+    leaf[..., 0] = 40
+    r = np.hypot((xs % 32) - 16, (ys % 32) - 16)
+    leaf[..., 3] = np.where(r < 12, 255, 0).astype(np.uint8)
+    leaf_tex = b.add_texture(leaf, srgb=True)
+
+    floor_mat = b.add_material(tex_diffuse=checker, roughness_factor=0.85)
+    leaf_mat = b.add_material(
+        tex_diffuse=leaf_tex, alpha_clipping_cutoff=0.5,
+        roughness_factor=0.8, metallic_factor=0.0,
+    )
+    p_floor = b.add_primitive(*make_plane_mesh(grid * 2.5), bucket=BUCKET_OPAQUE)
+    p_sphere = b.add_primitive(*make_sphere_mesh(16, 32), bucket=BUCKET_OPAQUE)
+    p_box = b.add_primitive(*make_box_mesh((0.5, 0.5, 0.5)), bucket=BUCKET_OPAQUE)
+    p_leaf = b.add_primitive(
+        *make_plane_mesh(0.8, y=0.0, uv_scale=1.0), bucket=BUCKET_ALPHA_CLIP
+    )
+    p_glass = b.add_primitive(*make_sphere_mesh(16, 32), bucket=BUCKET_TRANSMISSION)
+
+    b.add_instance(p_floor, floor_mat)
+    for i in range(grid):
+        for j in range(grid):
+            x = (i - grid / 2 + 0.5) * 4.0
+            z = -(j + 1) * 4.0
+            kind = (i + j) % 3
+            if kind == 0:
+                mat = b.add_material(
+                    diffuse_factor=(*rng.uniform(0.2, 0.9, 3), 1.0),
+                    roughness_factor=float(rng.uniform(0.2, 0.9)),
+                    metallic_factor=float(rng.uniform(0, 1) > 0.7),
+                )
+                b.add_instance(p_sphere, mat, translation=(x, 1.0, z),
+                               scale=float(rng.uniform(0.6, 1.2)))
+            elif kind == 1:
+                mat = b.add_material(
+                    diffuse_factor=(*rng.uniform(0.2, 0.9, 3), 1.0),
+                    roughness_factor=0.6,
+                )
+                b.add_instance(
+                    p_box, mat, translation=(x, 0.5, z),
+                    rotation=quat_from_axis_angle([0, 1, 0], float(rng.uniform(0, 3))),
+                )
+            else:
+                glass = b.add_material(
+                    transmission_factor=1.0, metallic_factor=0.0,
+                    roughness_factor=float(rng.uniform(0.0, 0.4)),
+                    thickness_factor=0.5, attenuation_distance=1.5,
+                    attenuation_colour=tuple(rng.uniform(0.3, 0.95, 3)),
+                )
+                b.add_instance(p_glass, glass, translation=(x, 1.0, z), scale=0.8)
+            # a leaf card beside every object
+            b.add_instance(
+                p_leaf, leaf_mat, translation=(x + 1.2, 1.0, z),
+                rotation=quat_from_axis_angle([1, 0, 0], 1.57),
+            )
     return b

@@ -13,16 +13,20 @@ adjugate rows, [9:12] clip z, [12:15] clip w, [15] tri id + CLASS_BIT *
 draw class, [16:40] three vertices of pos.xyz nrm.xyz uv.xy, [40]
 material id, [41] instance scale, [42:64] padding.
 
-Per pixel the raster keeps the first record (in sorted order) whose
-depth beats the seed depth and every earlier winner (reversed-Z
-GREATER), and interpolates the winner's attributes with the closed-form
-derivatives dA/dnx = (sum(a_i A_i) D - N sum(a_i)) / D^2 * 2/w.
+Each tile walks one list of records: the big list (``big_count``
+records of ``payload[1]``, walked by every tile; empty on the frame's
+class-split bins, whose big triangles ride the sorted stream, and filled
+by materialised bins), then the tile's run of the sorted stream. Per
+pixel the raster keeps the first record of that list whose depth beats
+the seed depth and every earlier winner (reversed-Z GREATER), and
+interpolates the winner's attributes with the closed-form derivatives
+dA/dnx = (sum(a_i A_i) D - N sum(a_i)) / D^2 * 2/w.
 
 That winner is exactly the record of maximum depth among those that
-pass the seed and ``max_depth`` filters, ties going to the smallest
-record index. So a tile's run can be cut into segments of at most
-``SEG`` records, each raced on its own, and the segment winners merged
-by the 64-bit key (float bits of the depth << 32) | (2^32 - 1 - index),
+pass the seed and ``max_depth`` filters, ties going to the smallest list
+position. So a tile's list can be cut into segments of at most ``SEG``
+records, each raced on its own, and the segment winners merged by the
+64-bit key (float bits of the depth << 32) | (2^32 - 1 - position),
 whose unsigned maximum is that winner; the kernel does so, and
 ``rasterize_gbuffer_tiles_plain(segment=...)`` does it in plain PyTorch.
 """
@@ -140,8 +144,10 @@ def gather_gbuf_payload(records: torch.Tensor, bins: TileBins):
 
 
 def _tile_runs(tile_start, tile_ids, num_classes, pass_class):
+    """(start, count) [K] int64 of each listed tile's run in the pass: the
+    class's run, or every class's (no class, or one-class bins)."""
     tid = tile_ids.long()
-    if pass_class is None:
+    if pass_class is None or num_classes == 1:
         start = tile_start[num_classes * tid]
         end = tile_start[num_classes * tid + num_classes]
     else:
@@ -152,6 +158,18 @@ def _tile_runs(tile_start, tile_ids, num_classes, pass_class):
 
 def _num_classes(tile_start, width, height) -> int:
     return (tile_start.shape[0] - 1) // (-(-width // TILE_W) * -(-height // TILE_H))
+
+
+def _big_records(payload, big_count) -> tuple:
+    """(big-list records [nbig, 64], nbig): the first ``big_count``
+    records of ``payload[1]``."""
+    nbig = int(big_count)
+    return payload[1].reshape(-1, REC_F32)[:nbig], nbig
+
+
+def _list_rows(start, slot, v, nbig):
+    """Row of list position v of ``slot`` in cat([big records, records])."""
+    return torch.where(v < nbig, v, start[slot] + v)
 
 
 def _pixel_ndc(tile_ids, width, height, tile_w=TILE_W, tile_h=TILE_H):
@@ -283,13 +301,15 @@ def rasterize_gbuffer_tiles_plain(
     segment: int | None = None,
 ) -> dict:
     """The G-buffer raster in plain PyTorch, in the kernel's arithmetic
-    order. With ``segment`` None the depth race runs record rank by record
-    rank, vectorised over every tile whose run is that long, and
-    interpolates at every win; with ``segment`` set it races each segment
-    of at most that many records on its own, merges the segment winners
-    by their (depth, -index) key and interpolates each pixel's winner
+    order. With ``segment`` None the depth race walks the big list, record
+    by record over every tile, then the runs record rank by record rank,
+    vectorised over every tile whose run is that long, and interpolates at
+    every win; with ``segment`` set it races each segment of at most that
+    many records of a tile's list on its own, merges the segment winners
+    by their (depth, -position) key and interpolates each pixel's winner
     once, as the kernel does. Both give the same channels bit for bit."""
     recs = payload[0].reshape(-1, REC_F32)
+    big, nbig = _big_records(payload, big_count)
     dev = recs.device
     k_tiles = tile_ids.shape[0]
     start, count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
@@ -309,20 +329,21 @@ def rasterize_gbuffer_tiles_plain(
     if init_depth_tiles is not None:
         ch["depth"].copy_(init_depth_tiles)
     if segment is not None:
-        key = _race_segments(recs, nx, ny, start, count, ch["depth"], max_depth_tiles,
-                             pass_class, segment)
+        lrecs = torch.cat([big, recs]) if nbig else recs
+        key = _race_segments(lrecs, nbig, nx, ny, start, count, ch["depth"],
+                             max_depth_tiles, pass_class, segment)
         won = key != 0
-        rw = recs[torch.where(won, KEY_INDEX_MASK - (key & KEY_INDEX_MASK), 0)]
+        k = torch.arange(k_tiles, device=dev)[:, None, None].expand(shape)
+        pos = KEY_INDEX_MASK - (key & KEY_INDEX_MASK)
+        rw = lrecs[torch.where(won, _list_rows(start, k, pos, nbig), 0)]
         f = lambda i: rw[..., i]  # noqa: E731
         e = _edges(f, nx, ny)
         vals = _interpolate(f, e, names, width, height)
         vals["depth"] = _race_test(f, e, None)[1]
         return {n: torch.where(won, vals[n], ch[n]) for n in names}
 
-    n_max = int(count.max()) if k_tiles else 0
-    for j in range(n_max):
-        act = torch.nonzero(count > j)[:, 0]
-        r = recs[start[act] + j]
+    def race(r, act):
+        """Race one record per listed tile of ``act`` (r [A or 1, 64])."""
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
         e = _edges(f, nx[act], ny[act])
         inside, depth, _ = _race_test(f, e, pass_class)
@@ -333,29 +354,38 @@ def rasterize_gbuffer_tiles_plain(
         vals["depth"] = depth  # stored last: the win mask read the old depth
         for name, val in vals.items():
             ch[name][act] = torch.where(win, val, ch[name][act])
+
+    for j in range(nbig):
+        race(big[j : j + 1], slice(None))
+    for j in range(int(count.max()) if k_tiles else 0):
+        act = torch.nonzero(count > j)[:, 0]
+        race(recs[start[act] + j], act)
     return ch
 
 
-def _race_segments(recs, nx, ny, start, count, seed, max_depth, pass_class, segment):
-    """Each work item's depth race from the seed, merged per pixel of each
-    tile slot into the key (float bits of depth + 0 << 32) | (2^32 - 1 -
-    record index) [K, 8, 128] int64; 0 where no record won. The + 0 turns
-    -0 into +0, so that the key orders as the depth does."""
-    slot, begin, end = work_items(start, count, segment)
+def _race_segments(lrecs, nbig, nx, ny, start, count, seed, max_depth, pass_class,
+                   segment):
+    """Each work item's depth race from the seed over its segment of the
+    slot's list (the big list at positions [0, nbig) of ``lrecs``, then the
+    run), merged per pixel of each tile slot into the key (float bits of
+    depth + 0 << 32) | (2^32 - 1 - list position) [K, 8, 128] int64; 0
+    where no record won. The + 0 turns -0 into +0, so that the key orders
+    as the depth does."""
+    slot, begin, end = work_items(torch.zeros_like(count), nbig + count, segment)
     best = seed[slot].clone()
-    best_i = torch.full(best.shape, -1, dtype=torch.int64, device=recs.device)
+    best_i = torch.full(best.shape, -1, dtype=torch.int64, device=lrecs.device)
     n_max = int((end - begin).max()) if slot.numel() else 0
     for j in range(n_max):
         act = torch.nonzero(end - begin > j)[:, 0]
-        idx = begin[act] + j
-        r = recs[idx]
+        v = begin[act] + j
+        r = lrecs[_list_rows(start, slot[act], v, nbig)]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
         inside, depth, _ = _race_test(f, _edges(f, nx[slot[act]], ny[slot[act]]), pass_class)
         win = inside & (depth > best[act])
         if max_depth is not None:
             win &= depth < max_depth[slot[act]]
         best[act] = torch.where(win, depth, best[act])
-        best_i[act] = torch.where(win, idx[:, None, None], best_i[act])
+        best_i[act] = torch.where(win, v[:, None, None], best_i[act])
     bits = (best + 0.0).view(torch.int32).to(torch.int64)
     key = torch.where(best_i >= 0, (bits << 32) | (KEY_INDEX_MASK - best_i), 0)
     merged = torch.zeros_like(seed, dtype=torch.int64)
@@ -363,19 +393,23 @@ def _race_segments(recs, nx, ny, start, count, seed, max_depth, pass_class, segm
 
 
 def covered_pairs(payload, tile_ids, tile_start, width, height, pass_class=None,
-                  chunk: int = 4096) -> int:
+                  big_count=0, chunk: int = 4096) -> int:
     """The (pixel, record) pairs of one call whose record covers the pixel
-    (top-left rule, records of ``pass_class``): where the race goes on
-    from the edge functions to the depth, the rest of its work per pair."""
+    (top-left rule, records of ``pass_class``; each tile's list, the big
+    list then its run): where the race goes on from the edge functions to
+    the depth, the rest of its work per pair."""
     recs = payload[0].reshape(-1, REC_F32)
+    big, nbig = _big_records(payload, big_count)
+    lrecs = torch.cat([big, recs]) if nbig else recs
     start, count = _tile_runs(tile_start, tile_ids, _num_classes(tile_start, width, height),
                               pass_class)
-    slot, rec, _ = work_items(start, count, 1)  # one item per (tile slot, record)
+    # one item per (tile slot, list position)
+    slot, v, _ = work_items(torch.zeros_like(count), nbig + count, 1)
     nx, ny = _pixel_ndc(tile_ids, width, height)
     total = 0
     for s in range(0, slot.shape[0], chunk):
         sl = slot[s : s + chunk]
-        r = recs[rec[s : s + chunk]]
+        r = lrecs[_list_rows(start, sl, v[s : s + chunk], nbig)]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
         inside = _covers(f, _edges(f, nx[sl], ny[sl]))
         if pass_class is not None:
@@ -392,9 +426,10 @@ def _raster_launch(payload, tile_ids, tile_start, big_count, width, height,
                    init_depth_tiles=None, max_depth_tiles=None,
                    pass_class=None, pos_derivs=True, uv_channels=True):
     """Launch kernel 1 -> (channels, the int64 buffer it worked in: the
-    per-pixel keys, then the plan, whose words the CUDA tests read)."""
-    del big_count  # 0: checked by the wrapper
-    rows = payload[0]
+    per-pixel keys, then the plan, whose words the CUDA tests read). A
+    ``big_count`` tensor stays on the card, where the kernel reads it (no
+    host sync)."""
+    rows, big_rows = payload
     dev = rows.device
     k_tiles = tile_ids.shape[0]
     tiles_x = -(-width // TILE_W)
@@ -402,6 +437,15 @@ def _raster_launch(payload, tile_ids, tile_start, big_count, width, height,
     kernels.check(rows, "payload rows", torch.float32, (rows.shape[0], 128), align=16)
     kernels.check(tile_start, "tile_start", torch.int32, device=dev)
     kernels.check(tile_ids, "tile_ids", torch.int32, (k_tiles,), device=dev)
+    if isinstance(big_count, torch.Tensor):
+        big_count = big_count.to(device=dev, dtype=torch.int32).reshape(1)
+    elif big_count:
+        big_count = torch.tensor([big_count], dtype=torch.int32, device=dev)
+    else:
+        big_count = big_rows = None
+    if big_count is not None:
+        kernels.check(big_rows, "big rows", torch.float32, (big_rows.shape[0], 128),
+                      device=dev, align=16)
     if init_depth_tiles is None:
         init_depth_tiles = torch.zeros((k_tiles, TILE_H, TILE_W), device=dev)
     kernels.check(init_depth_tiles, "init_depth_tiles", torch.float32,
@@ -420,13 +464,13 @@ def _raster_launch(payload, tile_ids, tile_start, big_count, width, height,
     keys = torch.zeros(k_tiles * (TILE_H * TILE_W + 1) + 1, dtype=torch.int64, device=dev)
     fn = kernels.entry("trt_raster_gbuf", [
         kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
-        kernels.INT, kernels.INT, kernels.INT, kernels.INT, kernels.INT,
-        kernels.FLOAT, kernels.FLOAT, kernels.INT, kernels.INT, kernels.VOIDP,
+        kernels.VOIDP, kernels.VOIDP, kernels.INT, kernels.INT, kernels.INT, kernels.INT,
+        kernels.INT, kernels.FLOAT, kernels.FLOAT, kernels.INT, kernels.INT, kernels.VOIDP,
         kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
     ])
     kernels.launch(
-        KERNEL, fn, kernels.ptr(rows), kernels.ptr(tile_start),
-        kernels.ptr(tile_ids), kernels.ptr(init_depth_tiles),
+        KERNEL, fn, kernels.ptr(rows), kernels.ptr(big_rows), kernels.ptr(big_count),
+        kernels.ptr(tile_start), kernels.ptr(tile_ids), kernels.ptr(init_depth_tiles),
         kernels.ptr(max_depth_tiles), k_tiles, tiles_x, nc,
         -1 if pass_class is None else int(pass_class), SEG,
         2.0 / width, 2.0 / height, int(pos_derivs), int(uv_channels),
@@ -448,7 +492,7 @@ def rasterize_gbuffer_tiles(
     payload: tuple,  # (payload_rows, big_rows) from gather_gbuf_payload
     tile_ids: torch.Tensor,  # [K] int32 global tile ids
     tile_start: torch.Tensor,  # [num_classes * n_tiles_global + 1] int32
-    big_count,  # must be 0: demoted triangles ride the sorted stream
+    big_count,  # records of big_rows every tile walks first (int or [1] tensor)
     width: int,
     height: int,
     init_depth_tiles: torch.Tensor | None = None,  # [K, 8, 128]
@@ -459,15 +503,8 @@ def rasterize_gbuffer_tiles(
 ) -> dict:
     """Rasterise a tile list -> {channel: [K, 8, 128]} for the active
     channels (kernel 1; plain version for CPU tensors)."""
-    if isinstance(big_count, torch.Tensor):
-        big_count = int(big_count)
-    if big_count:
-        raise NotImplementedError(
-            "per-tile big-record walk (materialised JAX-path bins): "
-            "ROADMAP queue 1, pure raster path"
-        )
     return KERNEL(
-        payload[0].is_cuda, payload, tile_ids, tile_start, 0, width, height,
+        payload[0].is_cuda, payload, tile_ids, tile_start, big_count, width, height,
         init_depth_tiles=init_depth_tiles, max_depth_tiles=max_depth_tiles,
         pass_class=pass_class, pos_derivs=pos_derivs, uv_channels=uv_channels,
     )
@@ -524,8 +561,12 @@ def rasterize_gbuffer_pallas(
         tile_image(init_depth, TILE_W, TILE_H).contiguous()
         if init_depth is not None else None
     )
+    # a length-1 big list means big triangles ride the sorted stream
+    n_big = bins.big_tri_ids.shape[0]
+    big_count = (0 if n_big <= 1 else
+                 torch.clamp(bins.big_tri_count, max=n_big).to(torch.int32).reshape(1))
     raw = rasterize_gbuffer_tiles(
-        payload, tile_ids, bins.tile_start, 0, width, height,
+        payload, tile_ids, bins.tile_start, big_count, width, height,
         init_depth_tiles=init_tiles, pass_class=pass_class,
         pos_derivs=pos_derivs, uv_channels=uv_channels,
     )

@@ -4,6 +4,7 @@ Counterpart of ``transmission_renderer_tpu/ops/texture.py``:
 ``_tap_footprint``, ``_level_meta_from_rows``, ``_class_geometry``,
 ``_flat_row_index``, ``atlas_classes``, ``sample_bundle_rows`` (the
 classic 2-level trilinear, ``fused=False``), ``select_layer``,
+``sample_texture_rows``,
 ``quad_lut_2ch``, ``lut_2ch_fetch_parts``, ``sample_lut_2ch_quad`` and
 ``sample_lut_2ch``.
 
@@ -179,6 +180,21 @@ def select_layer(samples: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:
     layer = torch.where((layer >= 0) & (layer < samples.shape[-2]), layer, 0).long()
     idx = layer[..., None, None].expand(layer.shape + (1, samples.shape[-1]))
     return torch.gather(samples, -2, idx)[..., 0, :]
+
+
+def sample_texture_rows(
+    quads: torch.Tensor,
+    rows: torch.Tensor,  # [..., META_COLS] int32 meta rows
+    uv: torch.Tensor,
+    lod: torch.Tensor,
+    wrap_mode: int,
+    classes: tuple,
+    layer: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Trilinear sample of one texture per pixel -> [..., 4]: bundle
+    layer ``layer`` (layer 0 when None, exact for single images)."""
+    s = sample_bundle_rows(quads, rows, uv, lod, wrap_mode, classes)
+    return s[..., 0, :] if layer is None else select_layer(s, layer)
 
 
 # ---------------------------------------------------------------------------

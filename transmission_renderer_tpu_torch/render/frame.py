@@ -4,18 +4,26 @@ Counterpart of ``transmission_renderer_tpu/render/frame.py``: DrawList,
 SceneFlags and their host derivation (expand_draw_list_numpy,
 build_draw_list_from_numpy, scene_flags_from_arrays),
 refraction_level_set, FrameDiagnostics, FrameParams, make_frame_params,
-_static_cluster_data, _class_tile_worklist, _tile_cap, _gather_gbuffer
-and render_frame, on both raster branches of the reference:
+_static_cluster_data, _class_tile_worklist, _tile_cap, _gather_gbuffer,
+the alpha-clip depth peel (_clip_alpha_ok_tiles, _merge_gbuffers,
+_default_gbuf_channels, _scatter_tile_channels, _rasterize_class_sparse,
+_rasterize_clip_peeled) and render_frame, on both raster branches of
+the reference:
 
 - the G-buffer kernel branch (the flagship on the card; frame.py:1073-1158):
-  class-split binning, the G-buffer raster (kernel 1), the fused sparse
-  transmission path (frame.py:1374-1416, 1486-1528), with or without
-  ray-traced shadows (frame.py:1007-1016, 1222-1277, 1492-1506). Pass
+  class-split binning (four draw classes with alpha clip), the G-buffer
+  raster (kernel 1), each alpha-clip class depth-peeled after its pass
+  (frame.py:1151-1158, 1439-1456), the dense or block-sparse opaque shade
+  (frame.py:1278-1322), and the fused sparse transmission path
+  (frame.py:1374-1416, 1486-1528) or, with alpha clip or a tile cap of
+  0, the sparse-tile or dense transmissive raster and the compacted
+  shade (frame.py:1417-1438, 1529-1573); ray-traced shadows
+  (frame.py:1007-1016, 1222-1277, 1492-1506) on the fused path. Pass
   order: vertex transform + cull (+ BVH refit), setup + binning, payload,
-  opaque raster (kernel 1), clustering, opaque shadow rays (kernel 5),
-  opaque shade (kernels 2 + 3), mip pyramid, sparse transmissive raster
-  (kernel 1), transmission shadow rays (kernel 5), transmission shade
-  (kernels 3 + 4), tonemap.
+  opaque raster (kernel 1) and its clip peel, clustering, opaque shadow
+  rays (kernel 5), opaque shade (kernels 2 + 3), mip pyramid,
+  transmissive raster (kernel 1) and its clip peel, transmission shadow
+  rays (kernel 5), transmission shade (kernels 3 + 4), tonemap.
 - the visibility-buffer branch (``use_pallas_raster=False``, and the
   default on the CPU or with tiles other than 8x128; frame.py:1055-1064,
   1159-1166, 1457-1463, 1470-1600): per pass a setup, materialised bins
@@ -58,10 +66,12 @@ from transmission_renderer_tpu_torch.ops.raster import (
     bin_triangles_materialized,
     setup_triangles,
     tile_image,
+    untile_image,
 )
 from transmission_renderer_tpu_torch.ops.raster_gbuf import (
     TILE_H,
     TILE_W,
+    active_channels,
     gather_gbuf_payload,
     gbuffer_from_channels,
     pack_gbuf_payload,
@@ -69,6 +79,11 @@ from transmission_renderer_tpu_torch.ops.raster_gbuf import (
     rasterize_gbuffer_tiles,
 )
 from transmission_renderer_tpu_torch.ops.raster_vis import gather_bin_payload, rasterize
+from transmission_renderer_tpu_torch.ops.texture import (
+    WRAP_REPEAT,
+    atlas_classes,
+    sample_texture_rows,
+)
 from transmission_renderer_tpu_torch.pbr.clustering import (
     assign_lights_to_clusters,
     cluster_coefficients,
@@ -83,9 +98,11 @@ from transmission_renderer_tpu_torch.render.gbuffer import GBuffer, interpolate_
 from transmission_renderer_tpu_torch.render.raytrace import shadow_factors
 from transmission_renderer_tpu_torch.render.shading import (
     ShadeContext,
+    _mip_lod,
     build_material_matrix,
     cluster_light_mask,
     shade_opaque,
+    shade_opaque_flat,
     shade_transmission,
     shade_transmission_flat,
 )
@@ -102,6 +119,8 @@ from transmission_renderer_tpu_torch.render.sparse import (
 from transmission_renderer_tpu_torch.scene.camera import perspective_matrix_reversed
 from transmission_renderer_tpu_torch.scene.textures import (
     IMAGE_MASK,
+    LAYER_SHIFT,
+    META_COLS,
     mip_levels_for_size,
 )
 from transmission_renderer_tpu_torch.scene.types import Scene
@@ -422,34 +441,223 @@ def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool,
         raise NotImplementedError(f"{what}: ROADMAP queue 1, {item}")
 
     if config.debug_clusters:
-        refuse("--debug-clusters", "debug views")
-    if config.opaque_block_cap_frac is not None:
-        refuse("the block-sparse opaque shade", "other frame variants")
+        refuse("--debug-clusters", "item 7 (debug views)")
     if config.half_res_refraction or config.quad_material_taps or config.bf16_light_math:
-        refuse("the quality flags", "other frame variants")
+        refuse("the quality flags", "item 3 (the quality flags)")
     if not use_pallas:
         if flags.has_alpha_clip:
             refuse("alpha clip in the visibility raster (alpha_coverage_fn)",
-                   "visibility-buffer variants")
+                   "item 6a (visibility-buffer alpha clip)")
         if use_rt:
             refuse("ray-traced shadows on the visibility-buffer branch",
-                   "visibility-buffer variants")
+                   "item 6b (visibility-buffer ray tracing)")
         return
-    if flags.has_alpha_clip:
-        refuse("alpha-clip depth peeling", "other frame variants")
+    if use_rt and flags.has_alpha_clip:
+        refuse("ray-traced shadows with alpha clip", "item 5 (the rest of ray tracing)")
     if (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
-        refuse("the G-buffer raster with tiles other than 8x128", "other frame variants")
+        refuse("the G-buffer raster with tiles other than 8x128",
+               "item 2 (the kernel branch's other widths)")
     if config.width % BLOCK:
         refuse("a width that is not a multiple of 128 on the G-buffer kernel "
-               "branch", "other frame variants")
+               "branch", "item 2 (the kernel branch's other widths)")
     if config.pallas_pair_cap_frac is not None:
         refuse("pair-stream compaction (measured negative in the reference)",
                "leave out of the port")
+    if flags.has_transmission and not _fused_transmission(config, flags):
+        if config.transmission_block_cap_frac is None:
+            refuse("the dense transmission shade on the G-buffer kernel branch",
+                   "item 2 (the kernel branch's other transmission paths)")
+        if use_rt:
+            refuse("ray-traced shadows with the non-fused transmission raster",
+                   "item 2 (the kernel branch's other transmission paths)")
+
+
+def _fused_transmission(config: RenderConfig, flags: SceneFlags) -> bool:
+    """Whether the kernel branch's transmissive raster feeds the shade
+    straight from its tiles (frame.py:1368-1373): a sparse tile cap, and
+    no alpha clip (whose peel needs the dense G-buffer)."""
+    cap_rt = _tile_cap(config.transmission_tile_cap_frac, config.tiles_x * config.tiles_y,
+                       config.sparse_raster_tile_floor)
+    return bool(cap_rt) and not flags.has_alpha_clip
 
 
 def _gather_gbuffer(wk: BlockWork, g: GBuffer) -> GBuffer:
     """Every G-buffer channel's active blocks -> a flat worklist."""
     return GBuffer(*(block_gather(wk, a) for a in g))
+
+
+def _clip_alpha_ok_tiles(scene: Scene, ch: dict) -> torch.Tensor:
+    """Alpha test of the clip race's current winners (the fragment kill of
+    depth_pre_pass_alpha_clip, shader/src/lib.rs:270-295) on a tiled
+    channel dict: the diffuse alpha at implicit LOD from the analytic uv
+    derivatives against the material's cutoff. True where the winner
+    passes (or there is no winner)."""
+    with pass_scope("clip_alpha_test"):
+        m = scene.materials
+        mat = torch.clamp(ch["material"], min=0).long()
+        tid = m.tex_diffuse[mat]
+        packed = torch.clamp(tid, min=0)
+        rows = scene.atlas_meta[(packed & IMAGE_MASK).long()][..., :META_COLS]
+        uv = torch.stack([ch["uv_u"], ch["uv_v"]], -1)
+        duvdx = torch.stack([ch["duvdx_u"], ch["duvdx_v"]], -1)
+        duvdy = torch.stack([ch["duvdy_u"], ch["duvdy_v"]], -1)
+        lod = _mip_lod(duvdx, duvdy, rows[..., 2], rows[..., 3])
+        classes = atlas_classes(scene.atlas_meta)
+        s = sample_texture_rows(
+            scene.atlas_texels, rows, uv, lod, WRAP_REPEAT, classes,
+            layer=(packed >> LAYER_SHIFT) if max(classes) > 1 else None,
+        )
+        alpha = m.diffuse_factor[mat, 3] * torch.where(tid >= 0, s[..., 3], 1.0)
+        return (ch["tri"] < 0) | (alpha >= m.alpha_clipping_cutoff[mat])
+
+
+def _merge_gbuffers(base: GBuffer, top: GBuffer) -> GBuffer:
+    """Depth-pass merge: where the (base-depth-seeded) top layer won a
+    pixel take its G-buffer, else keep base."""
+    pick = top.valid
+    fields = {
+        name: torch.where(pick[..., None] if a.dim() == 3 else pick, a, getattr(base, name))
+        for name, a in zip(GBuffer._fields, top)
+    }
+    fields["valid"] = base.valid | top.valid
+    return GBuffer(**fields)
+
+
+def _default_gbuf_channels(n_tiles: int, init_tiles: torch.Tensor, pos_derivs: bool,
+                           uv_channels: bool = True) -> dict:
+    """Tiled channels equal to kernel 1's output on a tile no record
+    wins, so a sparse pass scattered over them equals the dense one."""
+    zero = torch.zeros((n_tiles, TILE_H, TILE_W), dtype=torch.float32,
+                       device=init_tiles.device)
+    ch = {name: zero for name in active_channels(pos_derivs, uv_channels)}
+    ch["tri"] = torch.full_like(zero, -1, dtype=torch.int32)
+    ch["material"] = torch.zeros_like(zero, dtype=torch.int32)
+    ch["depth"] = init_tiles
+    ch["nrm_z"] = zero + 1.0
+    ch["scale"] = zero + 1.0
+    return ch
+
+
+def _scatter_tile_channels(ch: dict, ids: torch.Tensor, sub: dict, n_tiles: int) -> dict:
+    """Write a tile worklist's channels over the dense tiled ones (empty
+    slots, id n_tiles, land on a pad row that is dropped)."""
+    out = {}
+    for name, dense in ch.items():
+        padded = torch.cat([dense, torch.zeros_like(dense[:1])])
+        padded[ids.long()] = sub[name]
+        out[name] = padded[:n_tiles]
+    return out
+
+
+def _rasterize_class_sparse(payload, tile_start, big_count, pass_class: int, cap: int,
+                            init_tiles: torch.Tensor, w: int, h: int,
+                            pos_derivs: bool = True, uv_channels: bool = True):
+    """Raster one draw class over only the tiles holding its records
+    (exact while they fit ``cap``; the others keep the cleared output,
+    counted in the diagnostics) -> (dense tiled channels, active tile
+    count, (ids, safe ids, the worklist's channels))."""
+    n_tiles = -(-w // TILE_W) * -(-h // TILE_H)
+    num_classes = (tile_start.shape[0] - 1) // n_tiles
+    ids, count, pad_tile = _class_tile_worklist(tile_start, n_tiles, num_classes,
+                                                pass_class, cap)
+    safe_ids = torch.where(ids >= n_tiles, pad_tile, ids).contiguous()
+    sub = rasterize_gbuffer_tiles(
+        payload, safe_ids, tile_start, big_count, w, h,
+        init_depth_tiles=init_tiles[safe_ids.long()].contiguous(), pass_class=pass_class,
+        pos_derivs=pos_derivs, uv_channels=uv_channels,
+    )
+    ch = _scatter_tile_channels(
+        _default_gbuf_channels(n_tiles, init_tiles, pos_derivs, uv_channels), ids, sub,
+        n_tiles)
+    return ch, count, (ids, safe_ids, sub)
+
+
+def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: int,
+                           base: GBuffer, config: RenderConfig, w: int, h: int,
+                           pos_derivs: bool = True):
+    """Rasterise an alpha-clip draw class by depth peeling: race ignoring
+    alpha (seeded with the base pass's depth), alpha-test the winners,
+    then re-race only the tiles holding a failing winner with
+    ``max_depth`` = that winner's depth where it failed. Exact once the
+    rejected layers above the true winner number fewer than
+    ``config.alpha_clip_rounds``; leftovers are invalidated (base shows
+    through) and counted. -> (merged GBuffer, unresolved pixels, active
+    tiles of a sparse first round (0 when dense), (per-round failing-tile
+    demand, per-round caps), the unresolved pixels' [H, W] mask).
+
+    The channel state is a dict of [n_tiles + 1, 8, 128] tensors (row
+    n_tiles takes the empty slots' writes) updated by indexed assignment:
+    pure data movement, so every bit of a channel survives the rounds."""
+    tiles_x, tiles_y = -(-w // TILE_W), -(-h // TILE_H)
+    n_tiles = tiles_x * tiles_y
+    dev = base.depth.device
+    all_ids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    init_tiles = tile_image(base.depth, TILE_W, TILE_H).contiguous()
+    cap_c = _tile_cap(config.clip_tile_cap_frac, n_tiles, config.sparse_raster_tile_floor)
+    clip_tiles = torch.zeros((), dtype=torch.int32, device=dev)
+    if cap_c:
+        # sparse first round: only the tiles holding records of the class
+        # (inactive tiles keep the cleared output, so base wins there)
+        ch, clip_tiles, (ids0, _, sub0) = _rasterize_class_sparse(
+            payload, bins.tile_start, big_count, pass_class, cap_c, init_tiles, w, h,
+            pos_derivs=pos_derivs)
+        ok = torch.ones((n_tiles + 1, TILE_H, TILE_W), dtype=torch.bool, device=dev)
+        ok[ids0.long()] = _clip_alpha_ok_tiles(scene, sub0)
+        ok = ok[:n_tiles]
+    else:
+        ch = rasterize_gbuffer_tiles(payload, all_ids, bins.tile_start, big_count, w, h,
+                                     init_depth_tiles=init_tiles, pass_class=pass_class,
+                                     pos_derivs=pos_derivs)
+        ok = _clip_alpha_ok_tiles(scene, ch)
+    # per-round re-race caps: a scalar fraction for every round, or a
+    # tuple of shrinking ones (round r takes entry min(r - 1, last))
+    fracs = config.clip_retile_cap_frac
+    if not isinstance(fracs, (tuple, list)):
+        fracs = (fracs,)
+    caps = [max(int(np.ceil(n_tiles * f)), 1) for f in fracs]
+    nc = (bins.tile_start.shape[0] - 1) // n_tiles
+    peel_base = all_ids.long() * nc + pass_class
+    peel_pad_tile = torch.argmin(bins.tile_start[peel_base + 1]
+                                 - bins.tile_start[peel_base]).to(torch.int32)
+    state = {n: torch.cat([a, torch.zeros_like(a[:1])]) for n, a in ch.items()}
+    ok_p = torch.cat([ok, torch.ones_like(ok[:1])])
+    round_demand, round_caps = [], []
+    for rnd in range(1, max(config.alpha_clip_rounds, 1)):
+        cap = caps[min(rnd - 1, len(caps) - 1)]
+        round_caps.append(cap)
+        with pass_scope(f"clip_round_{rnd}"):
+            failed = (state["tri"][:n_tiles] >= 0) & ~ok_p[:n_tiles]
+            ft = failed.reshape(n_tiles, -1).any(dim=1)
+            round_demand.append(ft.to(torch.int32).sum())
+            pos = torch.cumsum(ft.to(torch.int32), 0) - 1
+            tgt = torch.where(ft & (pos < cap), pos, cap).long()
+            ids = torch.full((cap + 1,), n_tiles, dtype=torch.int32, device=dev)
+            ids[tgt] = all_ids
+            ids = ids[:cap]
+            # empty slots aim at the class's emptiest tile, not the last
+            # one (whose record run every empty slot would re-walk)
+            safe_ids = torch.where(ids >= n_tiles, peel_pad_tile, ids).contiguous()
+            safe = safe_ids.long()
+            prev = {n: a[safe] for n, a in state.items()}
+            failed_sel = failed[safe]
+            maxd = torch.where(failed_sel, prev["depth"], torch.inf).contiguous()
+            new = rasterize_gbuffer_tiles(
+                payload, safe_ids, bins.tile_start, big_count, w, h,
+                init_depth_tiles=init_tiles[safe].contiguous(), max_depth_tiles=maxd,
+                pass_class=pass_class, pos_derivs=pos_derivs)
+            sub = {n: torch.where(failed_sel, new[n], prev[n]) for n in state}
+            for n, a in state.items():
+                a[ids.long()] = sub[n]
+            ok_p[ids.long()] = _clip_alpha_ok_tiles(scene, sub)
+    ch = {n: a[:n_tiles] for n, a in state.items()}
+    failed = (ch["tri"] >= 0) & ~ok_p[:n_tiles]
+    unresolved = failed.to(torch.int32).sum()
+    ch["tri"] = torch.where(failed, -1, ch["tri"])
+    g_clip = gbuffer_from_channels({
+        n: untile_image(a, tiles_x, tiles_y, TILE_W, TILE_H, w, h) for n, a in ch.items()})
+    return (_merge_gbuffers(base, g_clip), unresolved, clip_tiles,
+            (tuple(round_demand), tuple(round_caps)),
+            untile_image(failed, tiles_x, tiles_y, TILE_W, TILE_H, w, h))
 
 
 def _merge_blocks(wk: BlockWork, valid: torch.Tensor, hdr: torch.Tensor,
@@ -540,18 +748,27 @@ def render_frame(
         return any(s for i, s in enumerate(slots) if i != 4)
 
     # ---- 2. opaque raster -------------------------------------------------
+    clip_unresolved = clip_tiles = zero
+    clip_rounds = None  # (per-round failing-tile demand, per-round caps)
     if use_pallas:
         # setup + class-split binning over every drawn bucket, one payload
-        # (frame.py:1073-1158); draw classes 0 opaque, 1 transmission
+        # (frame.py:1073-1158); draw classes 0 opaque, 1 transmission, 2
+        # alpha-clip, 3 transmission + alpha-clip
         mask = bucket_triangle_masks(
             dl.tri_inst, dl.tri_bucket, visible,
             (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP, BUCKET_TRANSMISSION,
              BUCKET_TRANSMISSION_ALPHA_CLIP) if flags.has_transmission
             else (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP),
         )
+        is_clip = (dl.tri_bucket == BUCKET_ALPHA_CLIP) | (
+            dl.tri_bucket == BUCKET_TRANSMISSION_ALPHA_CLIP)
         tri_class = ((dl.tri_bucket == BUCKET_TRANSMISSION)
                      | (dl.tri_bucket == BUCKET_TRANSMISSION_ALPHA_CLIP)).to(torch.int32)
-        num_classes = 2
+        tri_class = tri_class + 2 * is_clip.to(torch.int32)
+        num_classes = 4 if flags.has_alpha_clip else 2
+        # the clip peel's alpha test reads the uv channels
+        uv_o = sampled(flags.tex_slots) or flags.has_alpha_clip
+        uv_t = sampled(flags.tex_slots_transmission) or flags.has_alpha_clip
         with pass_scope("binning"):
             setup = setup_triangles(clip, dl.tri_vtx, mask, w, h, config.tile_w,
                                     config.tile_h)
@@ -570,8 +787,13 @@ def render_frame(
         with pass_scope("raster_opaque"):
             g_o = rasterize_gbuffer_pallas(
                 records, bins, w, h, pass_class=0, payload=gpayload,
-                pos_derivs=flags.tex_slots[2], uv_channels=sampled(flags.tex_slots),
+                pos_derivs=flags.tex_slots[2], uv_channels=uv_o,
             )
+        if flags.has_alpha_clip:
+            with pass_scope("raster_clip_peel"):
+                g_o, clip_unresolved, clip_tiles, clip_rounds, _ = _rasterize_clip_peeled(
+                    scene, gpayload, bins, 0, 2, g_o, config, w, h,
+                    pos_derivs=flags.tex_slots[2])
     else:
         # the visibility-buffer branch (frame.py:1159-1166): a setup and
         # materialised bins per pass, kernel 6, interpolate_gbuffer
@@ -637,10 +859,30 @@ def render_frame(
                     packet_swizzle="2d",
                 )
         ctx = ctx._replace(sun_shadow_factor=sun_f, light_shadow_factors=light_f)
-    with pass_scope("shade_opaque"):
-        hdr_planes = shade_opaque(scene, g_o, ctx)
-
     nb = num_blocks(h, w)
+    cap_o = (min(int(np.ceil(nb * config.opaque_block_cap_frac)), nb)
+             if config.opaque_block_cap_frac is not None else 0)
+    opaque_blocks = zero
+    with pass_scope("shade_opaque"):
+        if cap_o:
+            # block-sparse opaque shade: only blocks with coverage are
+            # gathered and shaded (frame.py:1278-1322)
+            wk_o = compact_blocks(g_o.valid, cap_o)
+            opaque_blocks = wk_o.count
+            ctx_f = ctx
+            if ctx.sun_shadow_factor is not None:
+                ctx_f = ctx_f._replace(
+                    sun_shadow_factor=block_gather(wk_o, ctx.sun_shadow_factor))
+            if ctx.light_shadow_factors is not None:
+                ctx_f = ctx_f._replace(
+                    light_shadow_factors=block_gather(wk_o, ctx.light_shadow_factors))
+            planes = shade_opaque_flat(scene, _gather_gbuffer(wk_o, g_o), ctx_f,
+                                       *pixel_coords(wk_o), *_block_coords(wk_o, w))
+            blank = torch.zeros((h, w), dtype=torch.float32, device=dev)
+            hdr_planes = tuple(block_scatter(wk_o, p, blank) for p in planes)
+        else:
+            hdr_planes = shade_opaque(scene, g_o, ctx)
+
     transmission_blocks = transmission_tiles = zero
     cap_t = cap_rt = 0
     if flags.has_transmission:
@@ -655,14 +897,12 @@ def render_frame(
                 scene, flags.tex_slots_transmission, flags.slot_bundles),
         )
 
-    if flags.has_transmission and use_pallas:
-        # ---- 6-7. fused sparse transmissive raster -> sparse shade ---------
+    fused = use_pallas and flags.has_transmission and _fused_transmission(config, flags)
+    if use_pallas and flags.has_transmission:
         cap_rt = _tile_cap(config.transmission_tile_cap_frac, n_tiles,
                            config.sparse_raster_tile_floor)
-        if not cap_rt:
-            raise NotImplementedError(
-                "dense (non-sparse) transmission raster: ROADMAP queue 1, "
-                "non-fused and dense transmission paths")
+    if fused:
+        # ---- 6-7. fused sparse transmissive raster -> sparse shade ---------
         init_tiles = tile_image(g_o.depth, TILE_W, TILE_H)
         ids_t, t_count, pad_t = _class_tile_worklist(
             bins.tile_start, n_tiles, num_classes, 1, cap_rt)
@@ -673,7 +913,7 @@ def render_frame(
                 gpayload, safe_t, bins.tile_start, 0, w, h,
                 init_depth_tiles=init_tiles[safe_t.long()].contiguous(),
                 pass_class=1, pos_derivs=flags.tex_slots_transmission[2],
-                uv_channels=sampled(flags.tex_slots_transmission),
+                uv_channels=uv_t,
             )
         g_tf = gbuffer_from_channels({
             n: a.reshape((cap_rt * TILE_H * TILE_W,) + a.shape[3:])
@@ -708,13 +948,42 @@ def render_frame(
             hdr_planes = _merge_blocks(wk_t, g_tf.valid, hdr_t, hdr_planes)
     elif flags.has_transmission:
         # ---- 6-7. transmissive raster seeded with the opaque depth, then
-        # the compacted (or dense) shade (frame.py:1457-1463, 1470-1600) ----
-        mask_t = bucket_triangle_masks(
-            dl.tri_inst, dl.tri_bucket, visible,
-            (BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP))
-        g_t, bins_t = _visibility_pass(clip, dl, mask_t, tri_scale, world_pos, world_nrm,
-                                       uvs, config, "raster_transmission",
-                                       init_depth=g_o.depth)
+        # the compacted (or dense) shade (frame.py:1417-1463, 1470-1600) ----
+        if use_pallas:
+            pos_derivs_t = flags.tex_slots_transmission[2]
+            with pass_scope("raster_transmission"):
+                if cap_rt:
+                    # sparse-tile raster: only tiles holding class-1 records
+                    ch_t, transmission_tiles, _ = _rasterize_class_sparse(
+                        gpayload, bins.tile_start, 0, 1, cap_rt,
+                        tile_image(g_o.depth, TILE_W, TILE_H).contiguous(), w, h,
+                        pos_derivs=pos_derivs_t, uv_channels=uv_t)
+                    g_t = gbuffer_from_channels({
+                        n: untile_image(a, tiles_x, tiles_y, TILE_W, TILE_H, w, h)
+                        for n, a in ch_t.items()})
+                else:
+                    g_t = rasterize_gbuffer_pallas(
+                        records, bins, w, h, pass_class=1, payload=gpayload,
+                        init_depth=g_o.depth, pos_derivs=pos_derivs_t, uv_channels=uv_t)
+            if flags.has_alpha_clip:
+                # the reference peels class 3 whenever the scene has alpha
+                # clip (frame.py:1439), with or without class-3 triangles
+                with pass_scope("raster_clip_peel"):
+                    g_t, miss, ct, rounds_t, _ = _rasterize_clip_peeled(
+                        scene, gpayload, bins, 0, 3, g_t, config, w, h,
+                        pos_derivs=pos_derivs_t)
+                clip_unresolved = clip_unresolved + miss
+                clip_tiles = torch.maximum(clip_tiles, ct)
+                clip_rounds = (tuple(torch.maximum(a, b)
+                                     for a, b in zip(clip_rounds[0], rounds_t[0])),
+                               clip_rounds[1])
+        else:
+            mask_t = bucket_triangle_masks(
+                dl.tri_inst, dl.tri_bucket, visible,
+                (BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP))
+            g_t, bins_t = _visibility_pass(clip, dl, mask_t, tri_scale, world_pos,
+                                           world_nrm, uvs, config, "raster_transmission",
+                                           init_depth=g_o.depth)
         # a fraction of the blocks with a 256-block floor: at small frames
         # one 128-px block spans several rows, so coverage quantises up
         if config.transmission_block_cap_frac is not None:
@@ -753,17 +1022,21 @@ def render_frame(
                 big_tri_count=torch.stack([b.big_tri_count for b in passes]).max(),
                 big_tri_capacity=config.max_big_tris, mid_tri_count=zero,
                 mid_tri_capacity=0, tier_overflow=zero)
+        clip_on = use_pallas and flags.has_alpha_clip
         out += (FrameDiagnostics(
             bin_capacity=config.max_tris_per_tile,
-            opaque_blocks=zero,
-            opaque_block_capacity=0,
+            opaque_blocks=opaque_blocks,
+            opaque_block_capacity=cap_o,
             transmission_blocks=transmission_blocks,
             transmission_block_capacity=cap_t,
-            clip_unresolved=zero,
+            clip_unresolved=clip_unresolved,
             transmission_tiles=transmission_tiles,
             transmission_tile_capacity=cap_rt,
-            clip_tiles=zero,
-            clip_tile_capacity=0,
+            clip_tiles=clip_tiles,
+            clip_tile_capacity=_tile_cap(config.clip_tile_cap_frac, n_tiles,
+                                         config.sparse_raster_tile_floor) if clip_on else 0,
+            clip_round_demand=clip_rounds[0] if clip_rounds else (),
+            clip_round_caps=clip_rounds[1] if clip_rounds else (),
             pair_demand=zero,
             pair_capacity=0,
             **diag,

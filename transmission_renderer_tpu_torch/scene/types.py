@@ -2,8 +2,8 @@
 material table and the frozen ``Scene``.
 
 Counterpart of ``transmission_renderer_tpu/scene/types.py`` (quat_rotate,
-Similarity, similarity_apply, MaterialsSoA, default_material,
-pack_materials, Scene). Same fields, same arithmetic order; arrays are
+quat_from_axis_angle, Similarity, similarity_apply, MaterialsSoA,
+default_material, pack_materials, Scene). Same fields, same arithmetic order; arrays are
 ``torch.Tensor`` and ``to_device`` moves a whole NamedTuple tree.
 """
 
@@ -21,6 +21,14 @@ import torch
 
 def quat_identity() -> np.ndarray:
     return np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+
+
+def quat_from_axis_angle(axis, angle: float) -> np.ndarray:
+    """Unit quaternion (xyzw) of a rotation by ``angle`` about ``axis``."""
+    axis = np.asarray(axis, np.float32)
+    axis = axis / np.linalg.norm(axis)
+    s = np.sin(angle / 2.0)
+    return np.array([*(axis * s), np.cos(angle / 2.0)], np.float32)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,10 @@ PASS_NAMES = (
     "raster_transmission", "shade_transmission", "shadow_rays_transmission",
     "tonemap",
 )
+# the alpha-clip depth peel's ranges, inside each raster_clip_peel (after
+# raster_opaque and after raster_transmission): its alpha tests and its
+# re-race rounds (clip_round_1 .. clip_round_{alpha_clip_rounds - 1})
+CLIP_PASS_NAMES = ("raster_clip_peel", "clip_alpha_test")
 
 
 @contextlib.contextmanager

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's flagship frames once on one GPU.
+"""Drive the PyTorch + CUDA port's frames of the bench's scenes once on one GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times
@@ -115,10 +115,35 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    ranges too) and kernel 1's ms over the frame's calls beside its plain
    version's and its bound. Its launch counts are printed on a line of
    their own before the kernels line.
+10. the bench's other scenes (bench.py:275-293; BENCH_SCENES): the
+   helmet (build_opaque_scene, opaque_block_cap_frac 0.625), the smooth
+   glass dragon (roughness 0), attenuation and bindless
+   (build_bindless_scene under bindless_lights(48), cap 0.8125), each at
+   1920x1080 with the bench's camera and lights on the kernel branch.
+   Per scene: (a) every kernel call of the frame through the kernel and
+   its plain version at phase 4's tolerances, printing per tap call its
+   meta block, pixels, layer classes and image sizes, per shade call its
+   materials, lights and slot blocks, then its valid pixels and lights
+   per valid pixel; (b) with the counts reset, the launches the frame
+   must make (expected_launches: kernel 1 and kernel 3 per pass, kernel 2
+   per meta block a pass taps, kernel 4 with a transmissive pass); (c) a
+   finite image in [0, 1] and no capacity overflow at the bench's first
+   camera and at its sweep's far end, bindless's opaque_blocks printed
+   beside BENCH_r05.json's; (d) sRGB RMSE < 4e-3 against
+   tests/goldens/<scene>_hd.png (the reference's 1080p frame) outside
+   the tiles where that golden's raster dropped triangles (BENCH_HD), the
+   whole-frame RMSE beside it, and the scene's small golden at 128x72
+   (8x128 tiles) under 4e-3; (e) the median ms/frame over 10 frames
+   after 2 warm-ups and per-pass ms; (f) on the helmet and bindless
+   frames, kernels 2 and 3 against their bound. The bench scenes' kernel
+   figures and launch counts are printed on lines of their own before
+   the kernels line.
 
 The kernels JSON object reports every kernel on the widest path that
-launches it: kernels 1-5 on the ray-traced frame (phase 7), kernel 6 on
-the visibility-buffer frame (phase 8): launches, worst parity error over
+launches it, named in its "frame" key: kernels 1-5 on the ray-traced
+frame ("rt", phase 7), kernel 6 on the visibility-buffer frame ("vis",
+phase 8; the bindless frame, with 48 lights, is kernel 3's busiest,
+reported in phase 10(f)): launches, worst parity error over
 every frame checked, ms per frame of the kernel (the card's time for
 the frame's calls, CUDA events queued behind a spin kernel so that they
 do not read the host's enqueue time, see device_ms; the host's time is
@@ -131,9 +156,10 @@ valid pixels and the lights each evaluates) with what bounds it.
 library_ms is null: no single PyTorch call computes any of these
 functions (PERF.md gives the reason for each).
 
-The lines before the last are the stress frame's launch counts, the
-kernels JSON object and the card's name and power limit; the last line
-is the result JSON object.
+The lines before the last are the bench scenes' kernel figures, the
+stress frame's and the bench scenes' launch counts, the kernels JSON
+object and the card's name and power limit; the last line is the result
+JSON object.
 """
 
 from __future__ import annotations
@@ -654,10 +680,10 @@ def diagnostics_dict(diag) -> dict:
             for f, v in zip(diag._fields, diag)}
 
 
-def golden_keep_mask(cfg):
-    """[H, W] bool: False on the pixels of GOLDEN_DROPPED_TILES."""
+def golden_keep_mask(cfg, tiles=GOLDEN_DROPPED_TILES):
+    """[H, W] bool: False on the pixels of ``tiles`` (8x128 tile ids)."""
     keep = np.ones(cfg.tiles_x * cfg.tiles_y, bool)
-    keep[list(GOLDEN_DROPPED_TILES)] = False
+    keep[list(tiles)] = False
     keep = keep.reshape(cfg.tiles_y, 1, cfg.tiles_x, 1)
     keep = np.broadcast_to(keep, (cfg.tiles_y, cfg.tile_h, cfg.tiles_x, cfg.tile_w))
     return keep.reshape(cfg.tiles_y * cfg.tile_h, -1)[: cfg.height, : cfg.width]
@@ -768,6 +794,14 @@ def bench_rig(sweep_updates: int):
     return rig
 
 
+def make_params(cfg, rig, dev):
+    """The frame params of a CameraRig's camera and sun at ``cfg``."""
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params
+
+    return make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                             rig.sun_dir(), device=dev)
+
+
 def stress_phase(card: str, max_err: dict) -> dict:
     """Phase 9, the stress frame: kernel parity on every call of the
     frame, the launches, the clip diagnostics at both ends of the bench's
@@ -778,7 +812,7 @@ def stress_phase(card: str, max_err: dict) -> dict:
     from transmission_renderer_tpu_torch.ops import raster_gbuf
     from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
     from transmission_renderer_tpu_torch.render import frame as frame_mod
-    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+    from transmission_renderer_tpu_torch.render.frame import render_frame
     from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
     from transmission_renderer_tpu_torch.utils.png import read_png
     from transmission_renderer_tpu_torch.utils.profiling import CLIP_PASS_NAMES, PASS_NAMES
@@ -792,13 +826,9 @@ def stress_phase(card: str, max_err: dict) -> dict:
         point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
     ], device=dev)
 
-    def params_of(rig):
-        return make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
-                                 rig.sun_dir(), device=dev)
-
-    params = params_of(bench_rig(0))
+    params = make_params(cfg, bench_rig(0), dev)
     far = bench_rig(11)
-    params_far = params_of(far)
+    params_far = make_params(cfg, far, dev)
     log(f"stress: {int(dl.tri_vtx.shape[0])} triangles, {cfg.width}x{cfg.height}, "
         f"opaque_block_cap_frac {cfg.opaque_block_cap_frac}, built in "
         f"{time.perf_counter() - t0:.2f} s, flags {flags}; sweep's far end: camera at "
@@ -914,6 +944,235 @@ def stress_phase(card: str, max_err: dict) -> dict:
         f"covering pairs {[c[0] for c in per_call]}, pixels with a winner "
         f"{[c[1] for c in per_call]}")
     return launches
+
+
+# The bench's other scenes (bench.py:275-293), each at its bench config,
+# the bench's first camera (bench_rig(0): bench.py::make_rig, the
+# CameraRig's default sun) and lights (bench.py:93-99; bindless_lights(48)
+# for bindless), on the kernel branch. "small" is the scene's small golden
+# (tests/golden_defs.py GOLDENS: builder arguments, camera, pitch, its
+# lights, at sun yaw 0.5) at 128x72, with the config changes the CPU tests
+# of tests/test_torch_scenes_bench.py use there: the bench's block caps
+# overflow at 72 blocks, so the block-sparse shade takes every block, and
+# the transmissive raster keeps the fused sparse path; the smooth dragon
+# has no small golden.
+BENCH_SCENES = {
+    "helmet": {"builder": "build_opaque_scene", "args": {},
+               "config": {"opaque_block_cap_frac": 0.625},
+               "small": ({"stacks": 32, "sectors": 64}, (0.0, 2.2, 1.5), -0.25,
+                         {"opaque_block_cap_frac": 1.0})},
+    "smooth": {"builder": "build_dragon_scene", "args": {"roughness_override": 0.0},
+               "config": {}, "small": None},
+    "attenuation": {"builder": "build_attenuation_scene", "args": {}, "config": {},
+                    "small": ({}, (0.0, 5.0, 3.0), -0.75,
+                              {"sparse_raster_tile_floor": 1,
+                               "transmission_tile_cap_frac": 0.85})},
+    "bindless": {"builder": "build_bindless_scene", "args": {},
+                 "config": {"opaque_block_cap_frac": 0.8125},
+                 "small": ({"grid": 5, "n_images": 48}, (0.0, 4.0, 3.0), -0.6,
+                           {"opaque_block_cap_frac": 1.0})},
+}
+
+# tests/goldens/<name>_hd.png: the reference's 1080p frames of the scenes
+# above, rendered on the CPU by its visibility-buffer branch
+# (tests/test_torch_bench_hd.py), with the reference's FrameDiagnostics of
+# each and the 8x128 tiles whose bins that branch overflowed (it keeps 2048
+# triangles of a pass a tile), where the golden lost triangles: the smooth
+# dragon has the flagship's mesh and camera, so the flagship's five.
+# _VIS_ZEROS: the fields that branch leaves at 0 on a scene without clip.
+_VIS_ZEROS = {"clip_unresolved": 0, "mid_tri_count": 0, "mid_tri_capacity": 0,
+            "transmission_tiles": 0, "transmission_tile_capacity": 0, "clip_tiles": 0,
+            "clip_tile_capacity": 0, "tier_overflow": 0, "clip_round_demand": (),
+            "clip_round_caps": (), "pair_demand": 0, "pair_capacity": 0}
+BENCH_HD = {
+    "helmet": {"dropped_tiles": (), "diagnostics": {
+        "max_bin_count": 857, "bin_capacity": 2048, "big_tri_count": 2,
+        "big_tri_capacity": 256, "opaque_blocks": 9438, "opaque_block_capacity": 10125,
+        "transmission_blocks": 0, "transmission_block_capacity": 0, **_VIS_ZEROS}},
+    "smooth": {"dropped_tiles": GOLDEN_DROPPED_TILES, "diagnostics": HD_VIS_DIAGNOSTICS},
+    "attenuation": {"dropped_tiles": (), "diagnostics": {
+        "max_bin_count": 2, "bin_capacity": 2048, "big_tri_count": 16,
+        "big_tri_capacity": 256, "opaque_blocks": 0, "opaque_block_capacity": 0,
+        "transmission_blocks": 2036, "transmission_block_capacity": 4050, **_VIS_ZEROS}},
+    "bindless": {"dropped_tiles": (), "diagnostics": {
+        "max_bin_count": 241, "bin_capacity": 2048, "big_tri_count": 53,
+        "big_tri_capacity": 256, "opaque_blocks": 11194, "opaque_block_capacity": 13163,
+        "transmission_blocks": 0, "transmission_block_capacity": 0, **_VIS_ZEROS}},
+}
+# BENCH_r05.json (the reference on a TPU): the bench's guard on bindless
+BINDLESS_REFERENCE_OPAQUE_BLOCKS = 11194
+
+
+def bench_scene(name: str, dev, small: bool = False):
+    """(scene, draw list, flags, config, frame params, lights) of bench
+    scene ``name`` on ``dev``: at the bench's size, config, camera and
+    lights, or with ``small`` at its small golden's."""
+    import dataclasses
+
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.models import procedural
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+
+    spec = BENCH_SCENES[name]
+    if small:
+        args, cam, pitch, changes = spec["small"]
+        args = dict(spec["args"], **args)
+        cfg = RenderConfig(width=128, height=72, **changes)
+        rig = bench_rig(0)
+        rig.camera.position = np.array(cam, np.float32)
+        rig.camera.pitch = pitch
+        rig.sun_yaw = 0.5
+    else:
+        args, cfg, rig = spec["args"], RenderConfig(width=1920, height=1080), bench_rig(0)
+        cfg = dataclasses.replace(cfg, **spec["config"])
+    scene, dl, flags = getattr(procedural, spec["builder"])(**args).finish_bundle(device=dev)
+    params = make_params(cfg, rig, dev)
+    if name == "bindless":
+        lights = procedural.bindless_lights(20 if small else 48)
+    elif small:
+        lights = [point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0)]
+    else:
+        lights = [point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
+                  point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0)]
+    return scene, dl, flags, cfg, params, pack_lights(lights, device=dev)
+
+
+def expected_launches(scene, flags) -> dict:
+    """The kernel launches a kernel-branch frame of the scene must make:
+    kernel 1 per pass, kernel 2 once per meta block a pass's shade taps
+    (render/shading.py::used_meta_cols), kernel 3 per pass, kernel 4 once
+    with a transmissive pass."""
+    from transmission_renderer_tpu_torch.render.shading import (
+        build_material_matrix, used_meta_cols)
+
+    def taps(slots):
+        return len(used_meta_cols(build_material_matrix(scene, slots, flags.slot_bundles),
+                                  slots))
+
+    t = int(flags.has_transmission)
+    return {"raster_gbuf": 1 + t, "tap_finish": taps(flags.tex_slots)
+            + (taps(flags.tex_slots_transmission) if t else 0),
+            "shade": 1 + t, "transmission_fetch": t}
+
+
+def bench_scenes_phase(card: str, max_err: dict) -> tuple:
+    """Phase 10, the bench's other scenes: per scene kernel parity on
+    every call of the frame, the launches, the diagnostics at both ends of
+    the bench's sweep, the 1080p and the small golden, the timing; kernels
+    2 and 3 against their bound on the helmet and bindless frames. ->
+    ({scene: launch counts}, {scene: {kernel: (ms, plain ms, bound ms,
+    bound by)}})."""
+    import torch
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+    from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
+    from transmission_renderer_tpu_torch.utils.png import read_png
+    from transmission_renderer_tpu_torch.utils.profiling import PASS_NAMES
+
+    dev = torch.device("cuda", 0)
+    handles = port_handles()[:4]
+    all_launches, kernel_rows = {}, {}
+    for name in BENCH_SCENES:
+        t0 = time.perf_counter()
+        scene, dl, flags, cfg, params, lights = bench_scene(name, dev)
+        log(f"{name}: {int(dl.tri_vtx.shape[0])} triangles, {scene.atlas_meta.shape[0]} "
+            f"images, {scene.materials.roughness_factor.numel()} materials, {lights.num} "
+            f"lights ({int(lights.is_a_spotlight().sum())} spot), {cfg.width}x{cfg.height}, "
+            f"opaque_block_cap_frac {cfg.opaque_block_cap_frac}, built in "
+            f"{time.perf_counter() - t0:.2f} s, flags {flags}")
+
+        def frame(p=params, c=cfg, **kw):
+            return render_frame(scene, dl, p, lights, c, flags, **kw)
+
+        # (a) every kernel call of the frame through the kernel and its
+        # plain version
+        expect = expected_launches(scene, flags)
+        used = tuple(h for h in handles if expect[h.name])
+        calls = capture(used, frame)
+        for i, ((_, rows, uv, _, _, classes), _) in enumerate(calls["tap_finish"]):
+            log(f"{name} tap_finish[{i}]: meta block {i + 1} of {len(calls['tap_finish'])}, "
+                f"{uv.shape[0]} pixels, layer classes {classes}, image sizes "
+                f"{sorted(set(rows[:, 2].tolist()))}")
+        for i, ((inp, spec), _) in enumerate(calls["shade"]):
+            log(f"{name} shade[{i}]: {inp.mat.shape[0]} materials, {inp.lmat.shape[0]} "
+                f"lights, cluster lists up to {int(inp.counts.max())} lights, "
+                f"{inp.samples.shape[0]} sample planes from {spec.n_layers}-layer blocks, "
+                f"slot blocks {spec.slot_bundle}, slots {spec.tex_slots}")
+        check_parity(used, calls, max_err, f"{name} ")
+
+        # (b) one frame with the counts reset, against what it must launch
+        (img, diag), launches = count_launches(handles, frame, return_diagnostics=True)
+        all_launches[name] = launches
+        log(f"{name} launches per frame: {launches}")
+        require(launches == expect, f"{name} launch counts {launches}, expected {expect}")
+
+        # (c) the image, and no overflow at both ends of the bench's sweep
+        require(tuple(img.shape) == (1080, 1920, 3), f"{name} image shape {tuple(img.shape)}")
+        require(bool(torch.isfinite(img).all()), f"{name} image has non-finite values")
+        lo, hi = float(img.min()), float(img.max())
+        require(0.0 <= lo and hi <= 1.0, f"{name} image outside [0, 1]: [{lo}, {hi}]")
+        far = frame(make_params(cfg, bench_rig(11), dev), return_diagnostics=True)[1]
+        for tag, d in (("yaw 0", diag), ("sweep end", far)):
+            log(f"{name} diagnostics at {tag}: {diagnostics_dict(d)}")
+            require(not d.overflowed(), f"{name} capacity overflow at {tag}: {d}")
+        if name == "bindless":
+            log(f"bindless opaque_blocks {int(diag.opaque_blocks)}/"
+                f"{diag.opaque_block_capacity} at the bench's first camera; the reference "
+                f"(BENCH_r05.json): overflowed=False opaque_blocks "
+                f"{BINDLESS_REFERENCE_OPAQUE_BLOCKS}")
+
+        # (d) the 1080p golden outside its dropped tiles, and the small one
+        golden = read_png(os.path.join(ROOT, "tests", "goldens", f"{name}_hd.png"))
+        golden = golden[..., :3] / 255.0
+        srgb = linear_to_srgb(img.cpu().numpy())
+        dropped = BENCH_HD[name]["dropped_tiles"]
+        keep = golden_keep_mask(cfg, dropped)
+        rmse_full = float(np.sqrt(np.mean((srgb - golden) ** 2)))
+        rmse = float(np.sqrt(np.mean((srgb[keep] - golden[keep]) ** 2)))
+        log(f"{name} golden {name}_hd.png: sRGB RMSE {rmse:.6f} (limit 4e-3) outside the "
+            f"{len(dropped)} tiles where the golden's raster dropped triangles; "
+            f"{rmse_full:.6f} over the whole frame")
+        require(rmse < 4e-3, f"{name} sRGB RMSE {rmse} vs its 1080p golden")
+        if BENCH_SCENES[name]["small"] is None:
+            log(f"{name}: no small golden (the small goldens hold the dragon at roughness "
+                f"0.25 only)")
+        else:
+            s_scene, s_dl, s_flags, s_cfg, s_params, s_lights = bench_scene(name, dev, True)
+            small, s_diag = render_frame(s_scene, s_dl, s_params, s_lights, s_cfg, s_flags,
+                                         return_diagnostics=True)
+            golden = read_png(os.path.join(ROOT, "tests", "goldens", f"{name}.png"))
+            golden = golden[..., :3] / 255.0
+            rmse_s = float(np.sqrt(np.mean((linear_to_srgb(small.cpu().numpy())
+                                            - golden) ** 2)))
+            log(f"{name} golden {name}.png at 128x72 (8x128 tiles, {s_lights.num} lights): "
+                f"sRGB RMSE {rmse_s:.6f} (limit 4e-3)")
+            require(not s_diag.overflowed(), f"{name} 128x72 capacity overflow: {s_diag}")
+            require(rmse_s < 4e-3, f"{name} sRGB RMSE {rmse_s} vs its small golden")
+
+        # (e) timing
+        times = timed_frames(frame, 2, 10)
+        med = statistics.median(times)
+        log(f"{name} frame 1920x1080 on [{card}]: median {med:.3f} ms/frame "
+            f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
+        profile_passes(frame, card, PASS_NAMES)
+
+        # (f) kernels 2 and 3 against their bound on the helmet and
+        # bindless frames
+        if name in ("helmet", "bindless"):
+            kernel_rows[name] = {}
+            for h in used:
+                if h.name not in ("tap_finish", "shade"):
+                    continue
+                k_ms, h_ms = kernel_ms(h, calls[h.name])
+                p_ms = plain_ms(h, calls[h.name])
+                works = [kernel_work(h.name, c) for c in calls[h.name]]
+                b_ms, b_by = bound_of(works)
+                kernel_rows[name][h.name] = (k_ms, p_ms, b_ms, b_by)
+                log(f"{name} kernel {h.name} on [{card}]: {k_ms:.3f} ms/frame on the device "
+                    f"(host {h_ms:.3f}), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms by "
+                    f"{b_by} ({sum(w[0] for w in works)} bytes, {sum(w[1] for w in works)} "
+                    f"operations), {b_ms / k_ms:.4f} of the bound reached, "
+                    f"{len(calls[h.name])} call(s) per frame")
+    return all_launches, kernel_rows
 
 
 def port_handles() -> tuple:
@@ -1130,7 +1389,7 @@ def main() -> int:
             "name": h.name, "route": "cuda", "source": h.source,
             "replaces": h.replaces, "launches": rt_launches[h.name],
             "max_abs_err": None, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "frame": "rt",
         })
 
     # the ray order: the swizzled order the frame traces in ("2d" opaque,
@@ -1257,6 +1516,7 @@ def main() -> int:
         "name": h.name, "route": "cuda", "source": h.source, "replaces": h.replaces,
         "launches": vis_launches[h.name], "max_abs_err": None, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "frame": "vis",
     })
 
     # (f) kernel 1 on the frame's own materialised bins: every tile walks
@@ -1272,9 +1532,14 @@ def main() -> int:
     # ---- 9. the stress frame ----------------------------------------------------
     stress_rows = stress_phase(card, max_err)
 
+    # ---- 10. the bench's other scenes --------------------------------------------
+    bench_launches, bench_kernels = bench_scenes_phase(card, max_err)
+
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]
+    log(json.dumps({"bench_kernels": bench_kernels}))
     log(json.dumps({"stress_launches": stress_rows}))
+    log(json.dumps({"bench_launches": bench_launches}))
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

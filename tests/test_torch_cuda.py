@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from transmission_renderer_tpu_torch.config import RenderConfig
+from transmission_renderer_tpu_torch.pbr.lights import spot_light
 
 # torch runs single-threaded here: the suite runs in several worker
 # processes at once, and oversubscribed OpenMP threads stall each other
@@ -57,18 +58,6 @@ def _textured():
     b.add_instance(b.add_primitive(*make_sphere_mesh(16, 32), bucket=BUCKET_OPAQUE),
                    obj, translation=(0.0, 1.2, -3.5))
     return b
-
-
-def _spot_light(position, colour, intensity, direction, inner, outer):
-    """The reference's spot_light() dict (shared-structs/src/lib.rs:105-123)."""
-    return dict(
-        position=np.asarray(position, np.float32),
-        colour_emission=np.asarray(colour, np.float32) * intensity,
-        falloff_distance_sq=np.float32(intensity / 0.05),
-        spot_epsilon=np.float32(np.cos(inner) - np.cos(outer)),
-        spot_direction=np.asarray(direction, np.float32),
-        spot_outer_angle=np.float32(outer),
-    )
 
 
 SCENES = {"dragon": _dragon, "textured": _textured}
@@ -112,7 +101,7 @@ def captured(request):
     lights = pack_lights([
         point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0),
         point_light([8.0, 0.8, 0.0], [0, 1, 0], 10.0),
-        _spot_light([-1.0, 2.5, -3.0], [0.3, 0.4, 1.0], 14.0, [0.3, -1.0, -0.2],
+        spot_light([-1.0, 2.5, -3.0], [0.3, 0.4, 1.0], 14.0, [0.3, -1.0, -0.2],
                     0.3, 0.7),
     ], device=dev)
     bvh = builder.build_rt_bvh(device=dev) if rt else None
@@ -157,21 +146,28 @@ def test_kernel_matches_plain(captured, name):
             sun_f = calls[0][0][0].sun_f
             assert bool(((sun_f > 0.0) & (sun_f < 1.0)).any())
     for call in calls:
-        got, ref = handle.replay(call, True), handle.replay(call, False)
-        if isinstance(ref, dict):  # the raster: every channel bit for bit
-            for key, r in ref.items():
-                assert torch.equal(got[key].cpu(), r.cpu()), key
-            continue
-        if name == "bvh_occlusion":
-            assert torch.equal(got, ref)
-            continue
-        g = torch.stack(list(got)).cpu().numpy()
-        r = torch.stack(list(ref)).cpu().numpy()
-        if name == "shade":
-            bad = ~np.isclose(g, r, atol=1e-5, rtol=0, equal_nan=True)
-            assert bad.any(axis=0).sum() <= 5e-4 * g.shape[1]
-        else:
-            np.testing.assert_allclose(g, r, atol=1e-6, rtol=0)
+        _check_against_plain(handle, call)
+
+
+def _check_against_plain(handle, call) -> None:
+    """One recorded call through the kernel and the plain version: the
+    raster's channels bit for bit, the occlusion hit set exact, shade
+    within 1e-5 on all but 0.05% of the pixels, tap and fetch 1e-6."""
+    got, ref = handle.replay(call, True), handle.replay(call, False)
+    if isinstance(ref, dict):  # the raster: every channel bit for bit
+        for key, r in ref.items():
+            assert torch.equal(got[key].cpu(), r.cpu()), key
+        return
+    if handle.name == "bvh_occlusion":
+        assert torch.equal(got, ref)
+        return
+    g = torch.stack(list(got)).cpu().numpy()
+    r = torch.stack(list(ref)).cpu().numpy()
+    if handle.name == "shade":
+        bad = ~np.isclose(g, r, atol=1e-5, rtol=0, equal_nan=True)
+        assert bad.any(axis=0).sum() <= 5e-4 * g.shape[1]
+    else:
+        np.testing.assert_allclose(g, r, atol=1e-6, rtol=0)
 
 
 def _occlusion_small_mesh(dead_every):
@@ -616,7 +612,7 @@ def vis_captured(request):
                                rig.sun_dir(), device=dev)
     lights = pack_lights([
         point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0),
-        _spot_light([-1.0, 2.5, -3.0], [0.3, 0.4, 1.0], 14.0, [0.3, -1.0, -0.2], 0.3, 0.7),
+        spot_light([-1.0, 2.5, -3.0], [0.3, 0.4, 1.0], 14.0, [0.3, -1.0, -0.2], 0.3, 0.7),
     ], device=dev)
     handles = _handles() + (raster_vis.KERNEL,)
     for h in handles:
@@ -813,3 +809,90 @@ def test_shade_sky_spot_and_mixed_clusters_match_plain(captured):
     assert bad.any(axis=0).sum() <= 5e-4 * got.shape[1]
     sky = (inp.pix[7] <= 0.5).cpu().numpy()
     assert (got[:, sky] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the bench's other scenes (chip_smoke.py phase 10 at full size)
+# ---------------------------------------------------------------------------
+
+def _smoke():
+    """The repo's chip_smoke.py, which defines the bench scenes, loaded as
+    a module."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.fixture(scope="module", params=["helmet", "smooth", "attenuation", "bindless"])
+def bench_captured(request):
+    """One 256x144 kernel-branch frame of a bench scene on the card, at the
+    bench's size, block caps, camera and lights (chip_smoke.py::bench_scene;
+    a cap may overflow at this size, which drops blocks but no kernel
+    call), every kernel call recorded -> (name, image, {kernel: (calls,
+    launches)}, the launches the frame must make)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    import dataclasses
+
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+
+    smoke = _smoke()
+    dev = torch.device("cuda")
+    name = request.param
+    scene, dl, flags, cfg, _, lights = smoke.bench_scene(name, dev)
+    cfg = dataclasses.replace(cfg, width=256, height=144, sparse_raster_tile_floor=1)
+    params = smoke.make_params(cfg, smoke.bench_rig(0), dev)
+    expect = dict(smoke.expected_launches(scene, flags), bvh_occlusion=0)
+    handles = _handles()
+    for h in handles:
+        h.recorder = []
+        h.launches = 0
+    img = render_frame(scene, dl, params, lights, cfg, flags)
+    torch.cuda.synchronize()
+    out = {h.name: (h.recorder, h.launches) for h in handles}
+    for h in handles:
+        h.recorder = None
+    return name, img, out, expect
+
+
+def test_bench_frame_builds_and_renders(bench_captured):
+    """Each bench scene's frame renders on the card: finite, in [0, 1],
+    with the launches its passes and meta blocks call for."""
+    name, img, out, expect = bench_captured
+    assert {n: launches for n, (_, launches) in out.items()} == expect
+    assert tuple(img.shape) == (144, 256, 3) and bool(torch.isfinite(img).all())
+    assert 0.0 <= float(img.min()) and float(img.max()) <= 1.0
+
+
+@pytest.mark.parametrize("name", ["raster_gbuf", "tap_finish", "shade", "transmission_fetch"])
+def test_bench_kernel_matches_plain(bench_captured, name):
+    """Each of the frame's calls through the kernel and the plain version,
+    at test_kernel_matches_plain's tolerances, on what only these scenes
+    send: kernel 2 on a 4-layer bundle beside 1-layer images (helmet) and
+    once per meta block over 72 mixed-size images (bindless); kernel 3 on
+    82 materials and 48 lights, 4 of them spots (bindless) and on the
+    normal-map and emissive slots (helmet); kernel 4 on level set (0,)
+    (smooth, attenuation)."""
+    handle = {h.name: h for h in _handles()}[name]
+    scene, _, out, expect = bench_captured
+    calls, _ = out[name]
+    assert len(calls) == expect[name]
+    if scene == "bindless" and name == "tap_finish":
+        sizes = set(torch.cat([c[0][1][:, 2] for c in calls]).tolist())
+        assert len(calls) == 3 and {48, 96, 192} & sizes
+    if scene == "helmet" and name == "tap_finish":
+        assert calls[0][0][5] == (1, 4)
+    if scene == "bindless" and name == "shade":
+        inp = calls[0][0][0]
+        assert inp.mat.shape[0] == 82 and inp.lmat.shape[0] == 48
+        assert int((inp.lmat[:, 11] > 0.5).sum()) == 4 and int(inp.counts.max()) > 16
+    if name == "transmission_fetch":
+        assert all(tuple(c[0][1]) == (0,) for c in calls)
+    for call in calls:
+        _check_against_plain(handle, call)

@@ -109,54 +109,17 @@ def test_golden_hd_dropped_tiles_are_the_references():
     reference's pure-JAX raster path (which rendered that golden)
     overflows at the golden's config, counted by the reference's own
     setup_triangles / bin_triangles, not by the port."""
-    import importlib.util
-
     from golden_defs import CFG_HD
-    from transmission_renderer_tpu.config import (
-        BUCKET_ALPHA_CLIP, BUCKET_OPAQUE, BUCKET_TRANSMISSION,
-        BUCKET_TRANSMISSION_ALPHA_CLIP)
-    from transmission_renderer_tpu.ops.cull import bucket_triangle_masks, cull_instances
-    from transmission_renderer_tpu.ops.raster import bin_triangles, setup_triangles
-    from transmission_renderer_tpu.scene.types import Similarity, similarity_apply
-    from transmission_renderer_tpu.utils.platform import f32_matmuls
+    from test_torch_bench_hd import dropped_tiles, smoke_module
 
-    path = os.path.join(os.path.dirname(GOLDEN_DIR), os.pardir, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-
+    smoke = smoke_module()
     cfg = CFG_HD
     scene, dl, _ = jdragon(roughness_override=0.25).finish_bundle()
     rig = _rig(*CAM)
     rig.sun_yaw = 4.8
     params = jparams(cfg, rig.camera.view_matrix(), rig.camera.position, rig.sun_dir())
-
-    @jax.jit
-    @f32_matmuls
-    def raw_counts(scene, dl, params):
-        # the vertex transform of the reference's render_frame (frame.py:985-1002)
-        inst_t = Similarity(translation=scene.inst_transform.translation[dl.vtx_inst],
-                            scale=scene.inst_transform.scale[dl.vtx_inst],
-                            rotation=scene.inst_transform.rotation[dl.vtx_inst])
-        pos = similarity_apply(inst_t, scene.positions[dl.vtx_src])
-        clip = jax.numpy.concatenate([pos, jax.numpy.ones_like(pos[:, :1])], -1) @ params.proj_view.T
-        visible = cull_instances(scene, params.view, params.frustum_x_xz,
-                                 params.frustum_y_yz, cfg.z_near)
-        out = []
-        for buckets in ((BUCKET_OPAQUE, BUCKET_ALPHA_CLIP),
-                        (BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP)):
-            mask = bucket_triangle_masks(dl.tri_inst, dl.tri_bucket, visible, buckets)
-            setup = setup_triangles(clip, dl.tri_vtx, mask, cfg.width, cfg.height,
-                                    cfg.tile_w, cfg.tile_h)
-            bins = bin_triangles(setup, cfg.tiles_x, cfg.tiles_y, cfg.max_tiles_per_tri,
-                                 cfg.max_tris_per_tile, cfg.max_big_tris)
-            out.append(bins.tile_start[1:] - bins.tile_start[:-1])
-        return out
-
-    over = set()
-    for counts in raw_counts(scene, dl, params):
-        over |= set(np.nonzero(np.asarray(counts) > cfg.max_tris_per_tile)[0].tolist())
-    assert tuple(sorted(over)) == smoke.GOLDEN_DROPPED_TILES
+    over = dropped_tiles(cfg, scene, dl, params)
+    assert over == smoke.GOLDEN_DROPPED_TILES
     keep = smoke.golden_keep_mask(cfg)
     assert keep.shape == (cfg.height, cfg.width)
     assert keep.size - keep.sum() == len(over) * cfg.tile_w * cfg.tile_h

@@ -3,8 +3,9 @@ JAX-free render.
 
 The port's SceneBuilder / build_dragon_scene must freeze exactly the
 arrays the reference freezes (build_stress_scene's are held in
-tests/test_torch_stress_frame.py) (ints and floats equal, the bfloat16 atlas
-bit-equal); the bridge must carry the reference's arrays over unchanged;
+tests/test_torch_stress_frame.py, the bench's other builders' in
+tests/test_torch_scenes_bench.py) (ints and floats equal, the bfloat16
+atlas bit-equal); the bridge must carry the reference's arrays over unchanged;
 and the port must build and render with jax, PIL, ml_dtypes and the JAX
 package itself absent, as on the machine with the card. The port's own
 copies of the reference's JAX-free modules (RenderConfig, the GGX LUT)

@@ -1,7 +1,7 @@
 """Light table — struct-of-arrays mirror of the reference's ``Light``.
 
 Counterpart of ``transmission_renderer_tpu/pbr/lights.py`` (Lights,
-point_light, pack_lights, spotlight_factor).
+point_light, spot_light, pack_lights, spotlight_factor).
 """
 
 from __future__ import annotations
@@ -44,8 +44,22 @@ def point_light(position, colour, intensity: float) -> dict:
     )
 
 
+def spot_light(position, colour, intensity: float, direction, inner_angle_rad: float,
+               outer_angle_rad: float) -> dict:
+    """shared-structs/src/lib.rs:105-123; the cone's epsilon in float64,
+    then float32, as the reference."""
+    return dict(
+        position=np.asarray(position, np.float32),
+        colour_emission=np.asarray(colour, np.float32) * intensity,
+        falloff_distance_sq=np.float32(intensity / 0.05),
+        spot_epsilon=np.float32(np.cos(inner_angle_rad) - np.cos(outer_angle_rad)),
+        spot_direction=np.asarray(direction, np.float32),
+        spot_outer_angle=np.float32(outer_angle_rad),
+    )
+
+
 def pack_lights(lights: list[dict], device=CARD) -> Lights:
-    """Stack point_light() dicts into a Lights table on ``device``."""
+    """Stack point_light() / spot_light() dicts into a Lights table on ``device``."""
     device = resolve_device(device)
     if not lights:
         # one zero-emission dummy whose falloff 0 never passes assignment

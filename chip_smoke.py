@@ -16,7 +16,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. device: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi) and torch.cuda.get_device_name().
-2. build: compiles the six CUDA kernels (transmission_renderer_tpu_torch/
+2. build: compiles the seven CUDA kernels (transmission_renderer_tpu_torch/
    csrc), one nvcc per source in parallel, into the package's _build/.
 3. scene: the flagship exactly as tests/golden_defs.py::render_hd_golden
    builds it: the procedural DragonAttenuation analogue (roughness 0.25,
@@ -139,11 +139,40 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    figures and launch counts are printed on lines of their own before
    the kernels line.
 
+11. the port's CLI (transmission_renderer_tpu_torch/cli.py), driven in
+   process through cli.main at its defaults (1920x1080, the flagship
+   camera, sun and lights), each run with every launch count set to 0
+   just before it and read just after: (a) --procedural dragon
+   --roughness-override 0.25: its frame equals phase 5's render_frame
+   frame (max abs error 0) and its PNG meets dragon_hd.png outside
+   GOLDEN_DROPPED_TILES at sRGB RMSE < 4e-3; (b) --procedural dragon
+   --as-debug: the closest-hit kernel launches once and nothing else
+   does, and on the frame's 2.07M camera rays its hit and triangle id
+   equal its plain walk's on every ray (t, u, v: the max abs error is
+   printed and reported), the plain walk's pops, triangle tests by exit
+   stage and alpha tests, the kernel's ms per frame (device_ms), the
+   plain walk's ms and the bound (kernel_work); (c) --procedural stress
+   --as-debug: the same equalities, and the rays whose closest candidate
+   an alpha test rejected (the kernel replayed with every cutoff at
+   -inf: > 0); (d) --debug-clusters --cluster-wireframe 5 on the dragon:
+   the reference's gate sends both shade passes to the tensor shade, so
+   kernel 1 launches twice and kernels 2-4 never; the image finite in
+   [0, 1]; (e) tests/assets/multi.glb --external-model --no-sponza
+   --check-nan (a GLB with binary-chunk PNGs, decoded without PIL): a
+   finite image, one VALIDATION line, the sparse transmissive raster's
+   tile overflow (MULTI_GLB_TRANSMISSION_TILES, the reference's own
+   count, against the default cap of 507) and no other, kernel 1 bit for
+   bit against its plain version on the frame's calls; (f) --procedural dragon
+   --spotlights --rotate-model --frames 3: three PNGs, finite, frames 1
+   and 2 differ from frame 0.
+
 The kernels JSON object reports every kernel on the widest path that
 launches it, named in its "frame" key: kernels 1-5 on the ray-traced
 frame ("rt", phase 7), kernel 6 on the visibility-buffer frame ("vis",
 phase 8; the bindless frame, with 48 lights, is kernel 3's busiest,
-reported in phase 10(f)): launches, worst parity error over
+reported in phase 10(f)), the closest-hit walk on the AS-debug dragon
+("as_debug", phase 11(b); it replaces no TPU kernel, its "replaces"
+says so): launches, worst parity error over
 every frame checked, ms per frame of the kernel (the card's time for
 the frame's calls, CUDA events queued behind a spin kernel so that they
 do not read the host's enqueue time, see device_ms; the host's time is
@@ -166,6 +195,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -433,6 +463,28 @@ def kernel_work(name: str, call, data=None) -> tuple:
         # tests), the whole test 54 (t's dot and scale, two tests)
         nbytes = sum(t.nbytes for t in table) + rays.nbytes + rays.shape[1]
         return nbytes, inner * 8 * 25 + sum(n * c for n, c in zip(tests, (16, 28, 46, 54)))
+    if name == "bvh_closest":
+        tree, table, rays, _, alpha = args
+        inner, tests, alphas = data
+        # every input once (the table, the leaf slots' ids, the rays, the
+        # alpha test's triangles, uvs, materials and atlas) and the five
+        # outputs (1 + 4 * 4 bytes a ray); the inner pops' slab tests and
+        # the triangle tests by exit stage as bvh_occlusion's, every real
+        # slot of a popped leaf tested (closest hit has no early exit),
+        # and per alpha test of a candidate that hit (alphas: textured,
+        # untextured) 36 operations where the material has a diffuse
+        # texture: the barycentric uv (12), the LOD-0 footprint (16), the
+        # lerp (6), the factor and the cutoff test (2); 2 where it has
+        # none. The plain walk tests a leaf's candidates against the best
+        # t at the pop, the kernel against its running best, so these
+        # counts may exceed the kernel's own by the candidates a nearer
+        # one in the same leaf hides: the bound may lean high, never low
+        n = rays.shape[1]
+        nbytes = (sum(t.nbytes for t in table) + tree.leaf_tri.nbytes + rays.nbytes
+                  + sum(t.nbytes for t in alpha) + n * 17)
+        ops = (inner * 8 * 25 + sum(k * c for k, c in zip(tests, (16, 28, 46, 54)))
+               + alphas[0] * 36 + alphas[1] * 2)
+        return nbytes, ops
     raise KeyError(name)
 
 
@@ -767,30 +819,18 @@ STRESS_REFERENCE = {"clip_unresolved": 196, "clip_round_demand": (510, 156, 26),
 
 def bench_rig(sweep_updates: int):
     """bench.py::make_rig's CameraRig after ``sweep_updates`` of the bench
-    sweep's smoothed updates (the reference's CameraRig.update at dt 1/60:
-    position half-time 0.5, rotation 0.25, toward target position
-    (0, 3, 1), pitch -15 degrees and the sweep's target yaw; update n
+    sweep's smoothed updates (CameraRig.update at dt 1/60: position
+    half-time 0.5, rotation 0.25, toward the rig's default target position
+    (0, 3, 1) and pitch -15 degrees and the sweep's target yaw; update n
     aims at yaw 0.02 min(n, 9))."""
-    import math
-
     from transmission_renderer_tpu_torch.scene.camera import CameraRig
 
     rig = CameraRig()
     rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
     rig.camera.pitch = -0.25
-    target_pos = np.array([0.0, 3.0, 1.0], np.float32)
-    target_pitch = math.radians(-15.0)
-
-    def factor(half_time):
-        return 1.0 - math.exp(-math.log(2.0) * (1.0 / 60.0) / (half_time / 4.0))
-
-    pf, rf = factor(0.5), factor(0.25)
     for n in range(sweep_updates):
-        target_yaw = 0.02 * min(n, 9)
-        rig.camera.position = (rig.camera.position
-                               + (target_pos - rig.camera.position) * pf).astype(np.float32)
-        rig.camera.yaw += (target_yaw - rig.camera.yaw) * rf
-        rig.camera.pitch += (target_pitch - rig.camera.pitch) * rf
+        rig.target_yaw = 0.02 * min(n, 9)
+        rig.update(1.0 / 60.0)
     return rig
 
 
@@ -1175,14 +1215,239 @@ def bench_scenes_phase(card: str, max_err: dict) -> tuple:
     return all_launches, kernel_rows
 
 
+# tests/assets/multi.glb through the CLI at its defaults: its glass quad
+# covers this many 8x128 tiles, more than the sparse transmissive raster's
+# default cap (0.25 of 2025 tiles: 507), so --check-nan reports it. The
+# count is the reference's own binning's
+# (tests/test_torch_cli.py::test_multi_glb_transmission_tiles_are_the_references).
+MULTI_GLB_TRANSMISSION_TILES = 592
+
+
+def cli_run(handles, argv: list) -> tuple:
+    """(exit code, linear frames, {kernel: recorded calls}, {kernel:
+    launches}, stderr text) of one in-process run of the port's CLI, with
+    every count set to 0 just before it and read just after."""
+    import contextlib
+    import io
+
+    import torch
+    from transmission_renderer_tpu_torch import cli
+
+    for h in handles:
+        h.launches = 0
+        h.recorder = []
+    frames, err = [], io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv, frames_out=frames)
+        torch.cuda.synchronize()
+    finally:
+        calls = {h.name: h.recorder for h in handles}
+        for h in handles:
+            h.recorder = None
+    launches = {h.name: h.launches for h in handles}
+    log(f"cli {' '.join(argv)}: exit {rc}, launches {launches}; stderr: "
+        f"{err.getvalue().strip()!r}")
+    require(rc == 0, f"cli exited {rc}: {err.getvalue()}")
+    return frames, calls, launches, err.getvalue()
+
+
+def check_closest(card: str, tag: str, call, max_err: dict) -> tuple:
+    """The closest-hit kernel on one recorded call against its plain walk
+    (run once, with its counts): hit and tri id equal on every ray, and t,
+    u, v bit-equal (both follow the same f32 rounding: the kernel is built
+    with --fmad=false), folded into max_err. -> (plain ms, (inner pops,
+    tests by stage, (textured, untextured) alpha tests), rays, hits)."""
+    import torch
+    from transmission_renderer_tpu_torch.ops import bvh, bvh_closest
+
+    (tree, table, rays, t_min, alpha), _ = call
+    got = bvh_closest.KERNEL.replay(call, True)
+    textured = []
+
+    def alpha_test(tri_id, u, v):
+        # counts the candidates whose material has a diffuse texture (the
+        # kernel taps the atlas only for those); kept on the card, so the
+        # walk's timing takes no extra sync
+        tid = alpha.tex_diffuse[alpha.tri_material[tri_id.long()].long()]
+        textured.append((tid >= 0).sum())
+        return alpha.test(tri_id, u, v)
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    walk = bvh.closest_walk(tree, table, rays, t_min, alpha_test)
+    end.record()
+    torch.cuda.synchronize()
+    p_ms = start.elapsed_time(end)
+    hit, t, tri, u, v, inner, leaf, tests, alphas = walk
+    n_tex = int(sum(textured)) if textured else 0
+    require(torch.equal(got[0], hit), f"{tag}bvh_closest: hit differs on "
+            f"{int((got[0] != hit).sum())} rays")
+    require(torch.equal(got[2], tri), f"{tag}bvh_closest: tri id differs on "
+            f"{int((got[2] != tri).sum())} rays")
+    errs = [float((a - b).abs().max()) for a, b in zip((got[1], got[3], got[4]), (t, u, v))]
+    require(max(errs) == 0.0, f"{tag}bvh_closest: t, u, v differ from the plain walk's by "
+            f"{errs} (tolerance 0: bit-equal)")
+    max_err["bvh_closest"] = max(max_err.get("bvh_closest", 0.0), *errs)
+    n, live = rays.shape[1], int((rays[9] > t_min).sum())
+    log(f"parity {tag}bvh_closest: {n} rays, {int(hit.sum())} hits; hit and tri id equal "
+        f"on every ray; max abs error t {errs[0]:.3e}, u {errs[1]:.3e}, v {errs[2]:.3e} (tolerance 0); "
+        f"plain walk {p_ms:.3f} ms on [{card}]: {int(inner.sum())} inner pops, "
+        f"{int(leaf.sum())} leaf pops ({int(inner.sum() + leaf.sum()) / max(live, 1):.2f} "
+        f"pops per live ray), triangle tests by exit stage "
+        f"{tests.sum(dim=0).tolist()}, {int(alphas.sum())} alpha tests ({n_tex} textured)")
+    alpha_tests = (n_tex, int(alphas.sum()) - n_tex)
+    return p_ms, (int(inner.sum()), tests.sum(dim=0).tolist(), alpha_tests), n, hit
+
+
+def cli_phase(card: str, max_err: dict, flagship_img) -> dict:
+    """Phase 11, the port's CLI at 1920x1080 in-process (cli.main): the
+    flagship frame, the AS-debug view on the dragon and on the stress
+    scene (the closest-hit kernel against its plain walk), the cluster
+    views, multi.glb with --check-nan, and the spotlights with the
+    rotating model over 3 frames. -> the closest-hit kernel's row."""
+    import tempfile
+
+    import torch
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.ops import bvh_closest, raster_gbuf
+    from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
+    from transmission_renderer_tpu_torch.utils.png import read_png
+
+    handles = port_handles()
+    names = [h.name for h in handles]
+    with tempfile.TemporaryDirectory() as tmp:
+        def out(name):
+            return ["-o", os.path.join(tmp, name)]
+
+        # (a) the flagship through the CLI: phase 5's frame exactly
+        frames, _, launches, _ = cli_run(
+            handles, ["--procedural", "dragon", "--roughness-override", "0.25"]
+            + out("dragon.png"))
+        got = torch.from_numpy(frames[0])
+        err = float((got - flagship_img.cpu()).abs().max())
+        log(f"cli (a) flagship: max abs error {err:.3e} against phase 5's render_frame "
+            f"frame; launches {launches}")
+        require(err == 0.0, f"cli flagship frame differs from render_frame's by {err}")
+        golden = read_png(os.path.join(ROOT, "tests", "goldens", "dragon_hd.png"))
+        golden = golden[..., :3] / 255.0
+        png = read_png(os.path.join(tmp, "dragon.png"))[..., :3] / 255.0
+        keep = golden_keep_mask(RenderConfig(width=1920, height=1080))
+        rmse = float(np.sqrt(np.mean((png[keep] - golden[keep]) ** 2)))
+        log(f"cli (a) dragon.png vs dragon_hd.png: sRGB RMSE {rmse:.6f} outside "
+            f"GOLDEN_DROPPED_TILES (limit 4e-3) on [{card}]")
+        require(rmse < 4e-3, f"cli flagship PNG RMSE {rmse}")
+
+        # (b) the AS-debug view of the dragon: the closest-hit kernel's
+        # main-path run, then its parity, timing and bound
+        frames, calls, launches_b, _ = cli_run(
+            handles, ["--procedural", "dragon", "--as-debug"] + out("as_debug.png"))
+        require(launches_b == dict.fromkeys(names, 0) | {"bvh_closest": 1},
+                f"as-debug launches {launches_b}")
+        require(bool(np.isfinite(frames[0]).all()), "as-debug image has non-finite values")
+        call = calls["bvh_closest"][0]
+        p_ms, work, n_rays, _ = check_closest(card, "cli (b) dragon ", call, max_err)
+        k_ms, h_ms = kernel_ms(bvh_closest.KERNEL, [call])
+        b_ms, b_by = bound_of([kernel_work("bvh_closest", call, work)])
+        nb, ops = kernel_work("bvh_closest", call, work)
+        log(f"cli (b) kernel bvh_closest on [{card}]: {k_ms:.3f} ms/frame on the device "
+            f"(host {h_ms:.3f}), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms by {b_by} "
+            f"({nb} bytes, {ops} operations), {b_ms / k_ms:.4f} of the bound reached, "
+            f"{n_rays} rays")
+        row = {"name": "bvh_closest", "route": "cuda", "source": bvh_closest.KERNEL.source,
+               "replaces": bvh_closest.KERNEL.replaces,
+               "launches": launches_b["bvh_closest"], "max_abs_err": None, "ms": k_ms,
+               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "frame": "as_debug"}
+
+        # (c) the AS-debug view of the stress scene: the alpha test on the
+        # leaf cards. The kernel with every cutoff at -inf gives each ray's
+        # geometrically closest candidate; where that differs, an alpha
+        # test rejected it
+        frames, calls, launches_c, _ = cli_run(
+            handles, ["--procedural", "stress", "--as-debug"] + out("stress_as_debug.png"))
+        require(launches_c["bvh_closest"] == 1, f"stress as-debug launches {launches_c}")
+        require(bool(np.isfinite(frames[0]).all()), "stress as-debug image is not finite")
+        call = calls["bvh_closest"][0]
+        _, work_c, _, hit_c = check_closest(card, "cli (c) stress ", call, max_err)
+        (tree, table, rays, t_min, alpha), kw = call
+        no_clip = alpha._replace(cutoff=torch.full_like(alpha.cutoff, -torch.inf))
+        geo = bvh_closest.KERNEL.replay(((tree, table, rays, t_min, no_clip), kw), True)
+        got = bvh_closest.KERNEL.replay(call, True)
+        rejected = int((geo[0] & (geo[2] != got[2])).sum())
+        k_ms_c, _ = kernel_ms(bvh_closest.KERNEL, [call])
+        log(f"cli (c) stress: {rejected} rays whose closest candidate an alpha test "
+            f"rejected; {sum(work_c[2])} alpha tests ({work_c[2][0]} textured); kernel "
+            f"{k_ms_c:.3f} ms/frame on [{card}]")
+        require(rejected > 0, "stress as-debug: no candidate was rejected by its alpha test")
+
+        # (d) the cluster views: the reference's gate sends both passes to
+        # the tensor shade, so kernels 2-4 never launch
+        frames, _, launches_d, _ = cli_run(
+            handles, ["--procedural", "dragon", "--debug-clusters", "--cluster-wireframe",
+                      "5"] + out("clusters.png"))
+        expect = dict.fromkeys(names, 0) | {"raster_gbuf": 2}
+        log(f"cli (d) routing: launches {launches_d} (the gate refuses debug_clusters: "
+            f"both passes on the tensor shade)")
+        require(launches_d == expect, f"debug-clusters launches {launches_d}, expected {expect}")
+        img = frames[0]
+        require(bool(np.isfinite(img).all()) and img.min() >= 0.0 and img.max() <= 1.0,
+                "cluster view outside [0, 1] or not finite")
+
+        # (e) the GLB fixture (binary-chunk PNGs, no PIL) with --check-nan:
+        # no non-finite pixel; the one capacity line is the sparse
+        # transmissive raster's, whose tile count is the reference's own
+        # (MULTI_GLB_TRANSMISSION_TILES), and nothing else overflows
+        glb = os.path.join(ROOT, "tests", "assets", "multi.glb")
+        frames, calls, launches_e, err = cli_run(
+            handles, [glb, "--external-model", "--no-sponza", "--check-nan"]
+            + out("multi.png"))
+        lines = [ln for ln in err.splitlines() if "VALIDATION" in ln]
+        require(bool(np.isfinite(frames[0]).all()) and "non-finite" not in err,
+                "multi.glb image is not finite")
+        tiles = f"transmission_tiles=tensor({MULTI_GLB_TRANSMISSION_TILES}"
+        require(len(lines) == 1 and "capacity overflow" in lines[0] and tiles in lines[0]
+                and "transmission_tile_capacity=507" in lines[0], f"multi.glb: {lines}")
+        from transmission_renderer_tpu_torch.render.frame import FrameDiagnostics
+
+        fields = dict(re.findall(r"(\w+)=(?:tensor\()?(\d+)", lines[0]))
+        diag = FrameDiagnostics(**{f: int(fields[f]) for f in FrameDiagnostics._fields
+                                   if f in fields and not f.startswith("clip_round")})
+        require(not diag._replace(transmission_tiles=0).overflowed(),
+                f"multi.glb: another capacity overflowed: {lines[0]}")
+        log(f"cli (e) multi.glb --check-nan: {int(diag.transmission_tiles)} transmission "
+            f"tiles against a cap of {diag.transmission_tile_capacity} (the reference's "
+            f"binning gives {MULTI_GLB_TRANSMISSION_TILES}), no other overflow, no "
+            f"non-finite pixel")
+        check_parity((raster_gbuf.KERNEL,), {"raster_gbuf": calls["raster_gbuf"]}, max_err,
+                     "cli (e) multi.glb ")
+
+        # (f) the spotlights and the rotating model over 3 frames
+        frames, _, _, _ = cli_run(
+            handles, ["--procedural", "dragon", "--spotlights", "--rotate-model",
+                      "--frames", "3"] + out("spots.png"))
+        pngs = sorted(f for f in os.listdir(tmp) if f.startswith("spots_"))
+        require(pngs == ["spots_000.png", "spots_001.png", "spots_002.png"], f"{pngs}")
+        require(len(frames) == 3 and all(np.isfinite(f).all() for f in frames),
+                "spotlight frames not finite")
+        diffs = [float(np.abs(frames[k] - frames[0]).max()) for k in (1, 2)]
+        log(f"cli (f) spotlights + rotate-model: frames 1 and 2 differ from frame 0 by "
+            f"{diffs} (max abs)")
+        require(min(diffs) > 0.0, "the spotlight / rotation frames did not change")
+    return row
+
+
 def port_handles() -> tuple:
     """Every kernel's handle: the flagship's four, then the occlusion
-    walk (ray-traced frames) and the visibility raster (vis frames)."""
-    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_gbuf, raster_vis, tap_finish
+    walk (ray-traced frames), the visibility raster (vis frames) and the
+    closest-hit walk (the AS-debug view)."""
+    from transmission_renderer_tpu_torch.ops import (
+        bvh_closest, bvh_packet, raster_gbuf, raster_vis, tap_finish)
     from transmission_renderer_tpu_torch.render import shade_kernel
 
     return (raster_gbuf.KERNEL, tap_finish.TAP_KERNEL, shade_kernel.KERNEL,
-            tap_finish.FETCH_KERNEL, bvh_packet.KERNEL, raster_vis.KERNEL)
+            tap_finish.FETCH_KERNEL, bvh_packet.KERNEL, raster_vis.KERNEL,
+            bvh_closest.KERNEL)
 
 
 def kernel_times() -> int:
@@ -1534,6 +1799,9 @@ def main() -> int:
 
     # ---- 10. the bench's other scenes --------------------------------------------
     bench_launches, bench_kernels = bench_scenes_phase(card, max_err)
+
+    # ---- 11. the CLI ---------------------------------------------------------------
+    kernel_rows.append(cli_phase(card, max_err, img))
 
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]

@@ -5,7 +5,10 @@ with them, and with them traced at half resolution (kernel 5, and kernel
 a small mesh, also with half the rays dead; kernel 1 alone on runs of
 several hundred records with ties across segments, a seeded pass and a
 depth-peel bound, and with a big list walked before the runs; kernel 6 (the visibility raster) in both walk
-orders on random scenes, and the visibility-buffer frame of each scene.
+orders on random scenes, and the visibility-buffer frame of each scene;
+the closest-hit, alpha-tested walk of the AS-debug view on the stress
+scene and on a two-class atlas with a bundle layer's alpha test (with
+dead rays), and the CLI's frame and AS-debug view on the card.
 Marked ``cuda``: on a host without a CUDA device they skip (the check
 runs inside the fixture, never at import).
 
@@ -896,3 +899,82 @@ def test_bench_kernel_matches_plain(bench_captured, name):
         assert all(tuple(c[0][1]) == (0,) for c in calls)
     for call in calls:
         _check_against_plain(handle, call)
+
+
+# ---------------------------------------------------------------------------
+# the closest-hit, alpha-tested walk (the AS-debug caster) and the CLI
+# ---------------------------------------------------------------------------
+
+def _clip_textured():
+    """The textured scene with its 4-layer bundle's diffuse layer
+    alpha-tested (a two-class atlas: the caster's tap selects a layer)."""
+    from transmission_renderer_tpu_torch.config import BUCKET_ALPHA_CLIP
+    from transmission_renderer_tpu_torch.models.procedural import make_plane_mesh
+
+    b = _textured()
+    rng = np.random.default_rng(5)
+    layers = [rng.integers(0, 256, (32, 32, 4)).astype(np.uint8) for _ in range(2)]
+    refs = b.add_texture_bundle([(layers[0], True), (layers[1], False)])
+    card = b.add_material(tex_diffuse=refs[1], alpha_clipping_cutoff=0.5)
+    b.add_instance(b.add_primitive(*make_plane_mesh(2.0), bucket=BUCKET_ALPHA_CLIP), card,
+                   translation=(0.0, 1.0, -2.0),
+                   rotation=np.array([np.sin(np.pi / 4), 0, 0, np.cos(np.pi / 4)], np.float32))
+    return b
+
+
+@pytest.mark.parametrize("scene", ["stress", "clip-textured"])
+def test_bvh_closest_matches_plain(scene):
+    """The AS-debug frame's closest-hit call at 256x144 (every 7th ray
+    dead): hit, tri id, t, u and v equal to the plain walk's; the alpha
+    test rejects some candidate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.ops import bvh_closest
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params
+    from transmission_renderer_tpu_torch.render.raytrace import render_as_debug_frame
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    dev = torch.device("cuda")
+    builder = build_stress_scene(grid=2) if scene == "stress" else _clip_textured()
+    s, dl, _ = builder.finish_bundle(device=dev)
+    cfg = RenderConfig(width=256, height=144, ray_traced_shadows=True)
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 3.0, 2.5], np.float32)
+    rig.camera.pitch = -0.5
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device=dev)
+    h = bvh_closest.KERNEL
+    h.recorder, before = [], h.launches
+    img = render_as_debug_frame(s, dl, params, None, cfg, builder.build_rt_bvh(device=dev))
+    torch.cuda.synchronize()
+    (call,), h.recorder = h.recorder, None
+    assert h.launches == before + 1 and bool(torch.isfinite(img).all())
+    (tree, table, rays, t_min, alpha), kw = call
+    rays = rays.clone()
+    rays[9, ::7] = 0.0
+    call = ((tree, table, rays, t_min, alpha), kw)
+    got, ref = h.replay(call, True), h.replay(call, False)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert not bool(got[0][::7].any()) and bool(got[0].any())
+    no_clip = alpha._replace(cutoff=torch.full_like(alpha.cutoff, -torch.inf))
+    geo = h.replay(((tree, table, rays, t_min, no_clip), kw), True)
+    assert bool((geo[0] & (geo[2] != got[2])).any())
+
+
+def test_cli_on_the_card(tmp_path):
+    """cli.main at 256x144 on the card: the kernel branch's frame, and
+    the AS-debug view through the closest-hit kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch import cli
+    from transmission_renderer_tpu_torch.ops import bvh_closest, raster_gbuf
+
+    small = ["--width", "256", "--height", "144", "--procedural", "dragon", "--detail", "0.2"]
+    for extra, handle in (([], raster_gbuf.KERNEL), (["--as-debug"], bvh_closest.KERNEL)):
+        frames, before = [], handle.launches
+        assert cli.main(small + extra + ["-o", str(tmp_path / "f.png")],
+                        frames_out=frames) == 0
+        assert handle.launches > before
+        assert np.isfinite(frames[0]).all() and frames[0].max() > 0.0

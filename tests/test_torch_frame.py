@@ -155,20 +155,19 @@ def test_sparse_block_helpers_match_reference():
 
 def test_unported_branches_refuse():
     """Branches outside the port raise NotImplementedError (no silent
-    detour): the debug views and the quality flags, a width that is not a
-    multiple of 128 and the dense transmission shade on the kernel branch;
-    alpha clip and ray-traced shadows on the visibility-buffer branch.
-    (The block-sparse opaque shade, the 256-tile floor's dense paths and
-    kernel-branch alpha clip render since they were ported:
-    tests/test_torch_stress_frame.py::test_former_refusals_render.)"""
+    detour): the quality flags, a width that is not a multiple of 128 and
+    the dense transmission shade on the kernel branch; alpha clip and
+    ray-traced shadows on the visibility-buffer branch. (The block-sparse
+    opaque shade, the 256-tile floor's dense paths and kernel-branch alpha
+    clip render since they were ported:
+    tests/test_torch_stress_frame.py::test_former_refusals_render; so does
+    ``debug_clusters``: tests/test_torch_cli.py.)"""
     builder = build_dragon_scene(stacks=8, sectors=16)
     scene, dl, flags = builder.finish_bundle(device="cpu")
     rig = _rig(*CAM)
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     vis = dataclasses.replace(CFG, use_pallas_raster=False)
-    for bad in (dataclasses.replace(CFG, debug_clusters=True),
-                dataclasses.replace(vis, debug_clusters=True),
-                dataclasses.replace(CFG, half_res_refraction=True),
+    for bad in (dataclasses.replace(CFG, half_res_refraction=True),
                 dataclasses.replace(CFG, sparse_raster_tile_floor=256,
                                     transmission_block_cap_frac=None),
                 dataclasses.replace(CFG, width=120)):

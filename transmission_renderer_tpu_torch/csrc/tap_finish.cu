@@ -13,71 +13,15 @@
 // Bound: memory latency of 2 scattered 16-texel block reads per pixel
 // (8 B per layer-channel texel pair, mostly L2 hits for a coherent uv
 // field). The plain version is ops/texture.py::sample_bundle_rows; the
-// lerp order is its _lerp4's.
-#include "common.cuh"
+// lerp order is its _lerp4's. The footprint and lerp are atlas_tap.cuh's,
+// shared with the closest-hit walk's alpha test.
+#include "atlas_tap.cuh"
 
 namespace {
 
-constexpr int META_LAYERS_COL = 17;
-constexpr int WRAP_REPEAT = 0;
-
-__device__ __forceinline__ float bf16_to_f32(uint16_t bits) {
-    return __uint_as_float(((uint32_t)bits) << 16);
-}
-
-struct Footprint {
-    size_t base;  // element index of the block's first texel
-    float fx, fy;
-};
-
-// One mip level's footprint for layer class lc (group geometry per class).
-__device__ Footprint level_footprint(const int* row, int level, float u, float v,
-                                     int wrap, int row_elems, int lc) {
-    const int num_mips = row[0];
-    level = min(max(level, 0), num_mips - 1);
-    const int w = max(row[2] >> level, 1);
-    const int h = max(row[3] >> level, 1);
-    const int off = row[4 + level];
-    const float x = u * (float)w - 0.5f;
-    const float y = v * (float)h - 0.5f;
-    const float x0f = floorf(x), y0f = floorf(y);
-    float fx = x - x0f, fy = y - y0f;
-    int x0 = (int)x0f, y0 = (int)y0f;
-    if (wrap == WRAP_REPEAT) {
-        x0 = ((x0 % w) + w) % w;
-        y0 = ((y0 % h) + h) % h;
-    } else {
-        if (x0 < 0) fx = 0.0f;
-        if (y0 < 0) fy = 0.0f;
-        x0 = min(max(x0, 0), w - 1);
-        y0 = min(max(y0, 0), h - 1);
-    }
-    const int bw = (w + 1) >> 1, bh = (h + 1) >> 1;
-    const int phase = (y0 & 1) * 2 + (x0 & 1);
-    const int qidx = off + phase * (bw * bh) + (y0 >> 1) * bw + (x0 >> 1);
-    const int blkw = 16 * lc;
-    int g = max(1, row_elems / blkw);
-    int shift = 31 - __clz(g);  // floor(log2 g); the group is 1 << shift
-    g = 1 << shift;
-    const int r = qidx >> shift;
-    const int sub = qidx & (g - 1);
-    Footprint f;
-    f.base = (size_t)r * row_elems + (size_t)sub * blkw;
-    f.fx = fx;
-    f.fy = fy;
-    return f;
-}
-
-__device__ __forceinline__ float lerp4(const uint16_t* q, size_t base, int stride, int ch,
-                                       float fx, float fy) {
-    const float c00 = bf16_to_f32(q[base + 0 * stride + ch]);
-    const float c10 = bf16_to_f32(q[base + 1 * stride + ch]);
-    const float c01 = bf16_to_f32(q[base + 2 * stride + ch]);
-    const float c11 = bf16_to_f32(q[base + 3 * stride + ch]);
-    const float top = c00 + (c10 - c00) * fx;
-    const float bot = c01 + (c11 - c01) * fx;
-    return top + (bot - top) * fy;
-}
+using trt::Footprint;
+using trt::lerp4;
+using trt::level_footprint;
 
 __global__ void tap_finish_kernel(const uint16_t* __restrict__ quads, int row_elems,
                                   const int* __restrict__ rows, int meta_stride,
@@ -87,9 +31,7 @@ __global__ void tap_finish_kernel(const uint16_t* __restrict__ quads, int row_el
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= m) return;
     const int* row = rows + (size_t)i * meta_stride;
-    const int first = __ffs(class_mask);  // lowest class = the default
-    const int lp = row[META_LAYERS_COL];
-    const int lc = (lp >= 1 && lp <= 31 && ((class_mask >> (lp - 1)) & 1)) ? lp : first;
+    const int lc = trt::layer_class(row, class_mask);
     float lod = lod_in[i];
     lod = lod < 0.0f ? 0.0f : lod;
     const float l0f = floorf(lod);

@@ -38,8 +38,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("raster_gbuf.cu", "tap_finish.cu", "shade.cu", "transmission_fetch.cu",
-           "bvh_occlusion.cu", "raster_vis.cu")
-HEADERS = ("common.cuh", "work_list.cuh")
+           "bvh_occlusion.cu", "raster_vis.cu", "bvh_closest.cu")
+HEADERS = ("common.cuh", "work_list.cuh", "atlas_tap.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",

@@ -5,8 +5,10 @@ subset: ``BVH``, ``LEAF_TRIS`` / ``WIDE`` / ``MAX_LEVELS``,
 ``wide_layout``, ``_morton3``, ``_fold_wide``, ``build_bvh`` (NumPy, no
 native fold), ``refit_bvh`` (torch), ``_ray_aabb``, ``_ray_tri`` and the
 any-hit, no-alpha-test walk of ``trace_rays(any_hit=True)`` as
-``occlusion_walk`` / ``trace_occlusion_plain``. The closest-hit and
-alpha-tested walks of the AS-debug caster are not ported.
+``occlusion_walk`` / ``trace_occlusion_plain``, and the AS-debug
+caster's closest-hit, alpha-tested walk of ``trace_rays(any_hit=False,
+alpha_test_fn=...)`` as ``closest_walk`` / ``trace_closest_plain`` (the
+plain version of ops/bvh_closest.py's kernel).
 
 Topology is implicit: triangles are Morton-sorted by centroid and packed
 ``LEAF_TRIS`` per leaf row; level-k node i's children are the level-(k-1)
@@ -205,6 +207,11 @@ def _ray_tri(origin, direction, t_min, t_max, v0, e1, e2):
     leading axes. The stage is the first test that fails, where a test
     that leaves early (the kernel's) stops: 0 the determinant, 1 u
     outside [0, 1], 2 v < 0 or u + v > 1, 3 none (the whole test ran)."""
+    return _ray_tri_tuv(origin, direction, t_min, t_max, v0, e1, e2)[:2]
+
+
+def _ray_tri_tuv(origin, direction, t_min, t_max, v0, e1, e2):
+    """``_ray_tri`` -> (hit, exit stage, t, u, v)."""
     def dot(a, b):
         return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
@@ -227,7 +234,8 @@ def _ray_tri(origin, direction, t_min, t_max, v0, e1, e2):
     hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
     u_out = ~((u >= 0.0) & (u <= 1.0))
     v_out = ~((v >= 0.0) & (u + v <= 1.0))
-    return hit, torch.where(~ok, 0, torch.where(u_out, 1, torch.where(v_out, 2, 3)))
+    stage = torch.where(~ok, 0, torch.where(u_out, 1, torch.where(v_out, 2, 3)))
+    return hit, stage, t, u, v
 
 
 class WalkTable(NamedTuple):
@@ -261,6 +269,62 @@ def _table_readers(bvh: BVH, table):
     return lambda r: table[r, : WIDE * 6].reshape(-1, WIDE, 6), leaf
 
 
+def _walk_start(bvh: BVH, live: torch.Tensor):
+    """(ray ids, lvl, idx, tlo, thi) of the live rays at the virtual
+    super-root: the real root (idx 0, code D) is the sole set bit of the
+    trail, and the first pop descends into it. Dead rays never pop."""
+    dev = live.device
+    d_levels = bvh.num_levels
+    root_mask = 1 << ((d_levels & 3) * 8)
+    act = torch.nonzero(live).reshape(-1)
+    m = act.shape[0]
+    lvl = torch.full((m,), d_levels + 1, dtype=torch.int64, device=dev)
+    idx = torch.zeros(m, dtype=torch.int64, device=dev)
+    tlo = torch.full((m,), root_mask if d_levels < 4 else 0, dtype=torch.int64, device=dev)
+    thi = torch.full((m,), root_mask if d_levels >= 4 else 0, dtype=torch.int64, device=dev)
+    return act, lvl, idx, tlo, thi
+
+
+def _advance(lvl, idx, tlo, thi):
+    """One pop of non-empty trails: the lowest set bit of the lowest
+    non-empty word (the lowest untested child of the deepest level)."""
+    have_lo = tlo != 0
+    w = torch.where(have_lo, tlo, thi)
+    low = w & -w
+    # its position, read exactly from the exponent of 2^pos as a float32
+    # (a log2 may round below the integer on some devices)
+    pos = ((low.to(torch.float32).view(torch.int32) >> 23) - 127).to(torch.int64)
+    tlo = torch.where(have_lo, tlo ^ low, tlo)
+    thi = torch.where(have_lo, thi, thi ^ low)
+    code = (pos >> 3) + torch.where(have_lo, 0, 4)
+    anc = idx >> torch.clamp(3 * (code + 1 - lvl), min=0)
+    return code, anc * WIDE + (pos & 7), tlo, thi
+
+
+def _level_tables(bvh: BVH, dev) -> tuple:
+    """(row offset, child count) of each internal level, as tensors."""
+    return (torch.tensor(bvh.level_offsets, dtype=torch.int64, device=dev),
+            torch.tensor([bvh.children_below(k) for k in range(bvh.num_levels)],
+                         dtype=torch.int64, device=dev))
+
+
+def _push_children(levels, node_boxes, inner, lvl, idx, tlo, thi, o, inv, t_max):
+    """Inner pops (mask ``inner``): WIDE slab tests against ``t_max``,
+    the mask of hit children pushed onto the trail words in place."""
+    lvl_off, below = levels
+    lanes_w = torch.arange(WIDE, dtype=torch.int64, device=idx.device)
+    ii = idx[inner]
+    clvl = lvl[inner] - 1
+    boxes = node_boxes(lvl_off[clvl] + ii)
+    h8 = _ray_aabb(o[:, None], inv[:, None], t_max[:, None], boxes[..., :3], boxes[..., 3:])
+    h8 = h8 & (lanes_w[None] < below[clvl][:, None] - ii[:, None] * WIDE)
+    add = (h8.to(torch.int64) * (1 << lanes_w)).sum(dim=1) << ((clvl & 3) * 8)
+    in_lo = clvl < 4
+    tlo_i, thi_i = tlo[inner], thi[inner]
+    tlo[inner] = torch.where(in_lo, tlo_i | add, tlo_i)
+    thi[inner] = torch.where(in_lo, thi_i, thi_i | add)
+
+
 def _walk_chunk(bvh: BVH, table, rays: torch.Tensor, t_min: float):
     """Bitstack any-hit walk of one chunk of rays [10, n] -> (hit, inner
     pops, leaf pops, triangle tests [n, 4]) per ray. Each step advances
@@ -270,46 +334,21 @@ def _walk_chunk(bvh: BVH, table, rays: torch.Tensor, t_min: float):
     dev = rays.device
     n = rays.shape[1]
     node_boxes, leaf_tris = _table_readers(bvh, table)
-    d_levels = bvh.num_levels
-    lvl_off = torch.tensor(bvh.level_offsets, dtype=torch.int64, device=dev)
-    below = torch.tensor([bvh.children_below(k) for k in range(d_levels)],
-                         dtype=torch.int64, device=dev)
     o_all, inv_all, d_all, tm_all = rays[0:3].T, rays[3:6].T, rays[6:9].T, rays[9]
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     inner_pops = torch.zeros(n, dtype=torch.int64, device=dev)
     leaf_pops = torch.zeros(n, dtype=torch.int64, device=dev)
     tri_tests = torch.zeros((n, 4), dtype=torch.int64, device=dev)
-    # the virtual super-root: the real root (idx 0, code D) is the sole
-    # set bit of the trail, and the first pop descends into it
-    root_mask = 1 << ((d_levels & 3) * 8)
-    act = torch.nonzero(tm_all > t_min).reshape(-1)  # dead rays never pop
-    m = act.shape[0]
-    lvl = torch.full((m,), d_levels + 1, dtype=torch.int64, device=dev)
-    idx = torch.zeros(m, dtype=torch.int64, device=dev)
-    tlo = torch.full((m,), root_mask if d_levels < 4 else 0, dtype=torch.int64, device=dev)
-    thi = torch.full((m,), root_mask if d_levels >= 4 else 0, dtype=torch.int64, device=dev)
-    lanes_w = torch.arange(WIDE, dtype=torch.int64, device=dev)
+    act, lvl, idx, tlo, thi = _walk_start(bvh, tm_all > t_min)
+    levels = _level_tables(bvh, dev)
     lanes_t = torch.arange(LEAF_TRIS, dtype=torch.int64, device=dev)
-    weights = (1 << lanes_w)
     while act.numel():
         # ---- advance: pop the deepest non-empty mask's lowest child
-        empty = (tlo == 0) & (thi == 0)
-        keep = ~empty
+        keep = (tlo != 0) | (thi != 0)
         act, lvl, idx, tlo, thi = act[keep], lvl[keep], idx[keep], tlo[keep], thi[keep]
         if not act.numel():
             break
-        have_lo = tlo != 0
-        w = torch.where(have_lo, tlo, thi)
-        low = w & -w  # lowest set bit: the lowest child of the deepest level
-        # its position, read exactly from the exponent of 2^pos as a float32
-        # (a log2 may round below the integer on some devices)
-        pos = ((low.to(torch.float32).view(torch.int32) >> 23) - 127).to(torch.int64)
-        tlo = torch.where(have_lo, tlo ^ low, tlo)
-        thi = torch.where(have_lo, thi, thi ^ low)
-        code = (pos >> 3) + torch.where(have_lo, 0, 4)
-        anc = idx >> torch.clamp(3 * (code + 1 - lvl), min=0)
-        idx = anc * WIDE + (pos & 7)
-        lvl = code
+        lvl, idx, tlo, thi = _advance(lvl, idx, tlo, thi)
         is_leaf = lvl == 0
 
         # ---- leaf pops: LEAF_TRIS Moller-Trumbore tests
@@ -329,19 +368,10 @@ def _walk_chunk(bvh: BVH, table, rays: torch.Tensor, t_min: float):
 
         # ---- inner pops: WIDE slab tests push a child mask
         inner = ~is_leaf
-        ii = idx[inner]
         ray = act[inner]
         inner_pops.index_add_(0, ray, torch.ones_like(ray))
-        clvl = lvl[inner] - 1
-        boxes = node_boxes(lvl_off[clvl] + ii)
-        h8 = _ray_aabb(o_all[ray][:, None], inv_all[ray][:, None],
-                       tm_all[ray][:, None], boxes[..., :3], boxes[..., 3:])
-        h8 = h8 & (lanes_w[None] < below[clvl][:, None] - ii[:, None] * WIDE)
-        add = (h8.to(torch.int64) * weights).sum(dim=1) << ((clvl & 3) * 8)
-        in_lo = clvl < 4
-        tlo_i, thi_i = tlo[inner], thi[inner]
-        tlo[inner] = torch.where(in_lo, tlo_i | add, tlo_i)
-        thi[inner] = torch.where(in_lo, thi_i, thi_i | add)
+        _push_children(levels, node_boxes, inner, lvl, idx, tlo, thi, o_all[ray],
+                       inv_all[ray], tm_all[ray])
 
         # rays that hit are finished
         keep = torch.ones_like(is_leaf)
@@ -371,3 +401,93 @@ def trace_occlusion_plain(bvh: BVH, table, rays: torch.Tensor,
                           t_min: float = 0.001) -> torch.Tensor:
     """Hit bool [N] of the plain walk (kernel 5's plain version)."""
     return occlusion_walk(bvh, table, rays, t_min)[0]
+
+
+def _closest_chunk(bvh: BVH, table, rays: torch.Tensor, t_min: float, alpha_test_fn):
+    """Bitstack closest-hit walk of one chunk of rays [10, n] -> (hit, t,
+    tri id, u, v, inner pops, leaf pops, triangle tests [n, 4] by exit
+    stage, alpha tests) per ray: the reference's walk with
+    ``any_hit=False`` (ops/bvh.py::trace_rays). Boxes and triangles are
+    tested against the ray's shrinking best t; a leaf's 16 candidates
+    are tested against the best t at the leaf's pop (``t < best_t``,
+    strict), those that hit are alpha-tested, and the first of the
+    nearest that pass is taken (``argmin``), so ties resolve in visit
+    order as in the reference."""
+    dev = rays.device
+    n = rays.shape[1]
+    node_boxes, leaf_tris = _table_readers(bvh, table)
+    o_all, inv_all, d_all, tm_all = rays[0:3].T, rays[3:6].T, rays[6:9].T, rays[9]
+    best_t = tm_all.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    inner_pops = torch.zeros(n, dtype=torch.int64, device=dev)
+    leaf_pops = torch.zeros(n, dtype=torch.int64, device=dev)
+    tri_tests = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    alpha_tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    act, lvl, idx, tlo, thi = _walk_start(bvh, tm_all > t_min)
+    levels = _level_tables(bvh, dev)
+    lanes_t = torch.arange(LEAF_TRIS, dtype=torch.int64, device=dev)
+    leaf_ids = bvh.leaf_tri.long()
+    while act.numel():
+        keep = (tlo != 0) | (thi != 0)
+        act, lvl, idx, tlo, thi = act[keep], lvl[keep], idx[keep], tlo[keep], thi[keep]
+        if not act.numel():
+            break
+        lvl, idx, tlo, thi = _advance(lvl, idx, tlo, thi)
+        is_leaf = lvl == 0
+
+        # ---- leaf pops: LEAF_TRIS tests against the best t so far
+        li = torch.clamp(idx[is_leaf], max=bvh.num_leaves - 1)
+        ray = act[is_leaf]
+        leaf_pops.index_add_(0, ray, torch.ones_like(ray))
+        h16, stage, t16, u16, v16 = _ray_tri_tuv(
+            o_all[ray][:, None], d_all[ray][:, None], t_min, best_t[ray][:, None],
+            *leaf_tris(li))
+        real = lanes_t[None] < bvh.num_tris - li[:, None] * LEAF_TRIS
+        h16 = h16 & real
+        tri_tests.index_add_(0, ray, (torch.nn.functional.one_hot(stage, 4)
+                                      * real[..., None]).sum(dim=1))
+        ids = leaf_ids[li]
+        cand = torch.nonzero(h16, as_tuple=True)
+        alpha_tests.index_add_(0, ray, h16.sum(dim=1))
+        if cand[0].numel():
+            h16[cand] = alpha_test_fn(ids[cand], u16[cand], v16[cand])
+        jt = torch.where(h16, t16, torch.inf).argmin(dim=1, keepdim=True)
+        take = h16.gather(1, jt)[:, 0]
+        tk, jt = ray[take], jt[take]
+        best_t[tk] = t16[take].gather(1, jt)[:, 0]
+        best_tri[tk] = ids[take].gather(1, jt)[:, 0]
+        best_u[tk] = u16[take].gather(1, jt)[:, 0]
+        best_v[tk] = v16[take].gather(1, jt)[:, 0]
+
+        # ---- inner pops: WIDE slab tests against the best t so far
+        inner = ~is_leaf
+        ray = act[inner]
+        inner_pops.index_add_(0, ray, torch.ones_like(ray))
+        _push_children(levels, node_boxes, inner, lvl, idx, tlo, thi, o_all[ray],
+                       inv_all[ray], best_t[ray])
+    return (best_tri >= 0, best_t, best_tri.to(torch.int32), best_u, best_v,
+            inner_pops, leaf_pops, tri_tests, alpha_tests)
+
+
+def closest_walk(bvh: BVH, table, rays: torch.Tensor, t_min: float, alpha_test_fn):
+    """The plain closest-hit, alpha-tested walk over ray planes [10, N]
+    (as ``occlusion_walk``) -> (hit bool, t, tri id int32 (-1 on a miss),
+    u, v, inner pops, leaf pops, triangle tests by exit stage [N, 4],
+    alpha tests) per ray, in chunks of RAY_CHUNK rays. A miss keeps t =
+    t_max and u = v = 0. ``alpha_test_fn(tri_ids, u, v) -> bool``
+    confirms the candidates that hit (the caster's alpha re-test)."""
+    outs = [_closest_chunk(bvh, table, rays[:, s : s + RAY_CHUNK], float(t_min),
+                           alpha_test_fn)
+            for s in range(0, rays.shape[1], RAY_CHUNK)]
+    if not outs:
+        return _closest_chunk(bvh, table, rays, float(t_min), alpha_test_fn)
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def trace_closest_plain(bvh: BVH, table, rays: torch.Tensor, t_min: float,
+                        alpha_test_fn) -> tuple:
+    """(hit, t, tri id, u, v) of the plain closest-hit walk: the plain
+    version of the closest-hit kernel (ops/bvh_closest.py)."""
+    return closest_walk(bvh, table, rays, t_min, alpha_test_fn)[:5]

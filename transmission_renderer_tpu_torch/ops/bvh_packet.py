@@ -60,26 +60,35 @@ def kernel_walk_table(bvh: BVH, tri_vertices: torch.Tensor,
     return WalkTable(nodes.contiguous(), tris.contiguous())
 
 
-def _bvh_occlusion_cuda(bvh: BVH, table: WalkTable, rays: torch.Tensor,
-                        t_min: float) -> torch.Tensor:
+def walk_layout(bvh: BVH, table: WalkTable, rays: torch.Tensor):
+    """Check a walk kernel's table and ray planes [10, N] (kernel 5 and
+    the closest-hit walk take the same) -> the layout words they take
+    (num_rows, num_leaves, num_tris, num_levels, then MAX_LEVELS level
+    offsets and MAX_LEVELS child counts)."""
     dev = table.nodes.device
-    n = rays.shape[1]
     num_rows = bvh.node_boxes.shape[0]
     kernels.check(table.nodes, "walk table nodes", torch.float32, (num_rows, 6 * WIDE),
                   align=16)
     kernels.check(table.tris, "walk table triangles", torch.float32,
                   (bvh.num_leaves * LEAF_TRIS, 12), device=dev, align=16)
-    kernels.check(rays, "ray planes", torch.float32, (10, n), device=dev)
+    kernels.check(rays, "ray planes", torch.float32, (10, rays.shape[1]), device=dev)
     if bvh.num_levels > MAX_LEVELS:
         raise ValueError(f"{bvh.num_levels} BVH levels: the bitstack holds {MAX_LEVELS}")
+    pad = [0] * (MAX_LEVELS - bvh.num_levels)
+    return (ctypes.c_int * (4 + 2 * MAX_LEVELS))(
+        num_rows, bvh.num_leaves, bvh.num_tris, bvh.num_levels,
+        *(list(bvh.level_offsets) + pad),
+        *([bvh.children_below(k) for k in range(bvh.num_levels)] + pad),
+    )
+
+
+def _bvh_occlusion_cuda(bvh: BVH, table: WalkTable, rays: torch.Tensor,
+                        t_min: float) -> torch.Tensor:
+    dev = table.nodes.device
+    n = rays.shape[1]
+    layout = walk_layout(bvh, table, rays)
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
-    layout = (ctypes.c_int * (4 + 2 * MAX_LEVELS))(
-        num_rows, bvh.num_leaves, bvh.num_tris, bvh.num_levels,
-        *(list(bvh.level_offsets) + [0] * (MAX_LEVELS - bvh.num_levels)),
-        *([bvh.children_below(k) for k in range(bvh.num_levels)]
-          + [0] * (MAX_LEVELS - bvh.num_levels)),
-    )
     fn = kernels.entry("trt_bvh_occlusion", [
         ctypes.POINTER(ctypes.c_int), kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
         kernels.INT, kernels.FLOAT, kernels.VOIDP, kernels.VOIDP,

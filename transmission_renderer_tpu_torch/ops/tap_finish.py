@@ -24,6 +24,7 @@ import torch
 from transmission_renderer_tpu_torch import kernels
 from transmission_renderer_tpu_torch.ops.mipchain import MipPyramid, sample_pyramid_lod
 from transmission_renderer_tpu_torch.ops.texture import (
+    class_mask,
     sample_bundle_rows,
     sample_lut_2ch,
 )
@@ -47,9 +48,6 @@ def _sample_bundle_planes_cuda(quads, rows, uv, lod, wrap_mode, classes) -> list
         raise ValueError(f"meta rows: shape {tuple(rows.shape)}, expected [{m}, >=18]")
     kernels.check(uv, "uv", torch.float32, (m, 2), device=dev)
     kernels.check(lod, "lod", torch.float32, (m,), device=dev)
-    mask = 0
-    for lc in classes:
-        mask |= 1 << (lc - 1)
     out = torch.empty((4 * l_max, m), dtype=torch.float32, device=dev)
     fn = kernels.entry("trt_tap_finish", [
         kernels.VOIDP, kernels.INT, kernels.VOIDP, kernels.INT, kernels.VOIDP,
@@ -59,7 +57,7 @@ def _sample_bundle_planes_cuda(quads, rows, uv, lod, wrap_mode, classes) -> list
     kernels.launch(
         TAP_KERNEL, fn, kernels.ptr(quads), quads.shape[-1], kernels.ptr(rows),
         rows.shape[1], kernels.ptr(uv), kernels.ptr(lod), m, int(wrap_mode),
-        mask, l_max, kernels.ptr(out),
+        class_mask(classes), l_max, kernels.ptr(out),
     )
     return list(out)
 

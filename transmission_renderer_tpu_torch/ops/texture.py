@@ -3,8 +3,9 @@
 Counterpart of ``transmission_renderer_tpu/ops/texture.py``:
 ``_tap_footprint``, ``_level_meta_from_rows``, ``_class_geometry``,
 ``_flat_row_index``, ``atlas_classes``, ``sample_bundle_rows`` (the
-classic 2-level trilinear, ``fused=False``), ``select_layer``,
-``sample_texture_rows``,
+classic 2-level trilinear, ``fused=False``, or bilinear at floor(lod)),
+``select_layer``, ``sample_texture_rows``, ``sample_texture`` (bilinear,
+the AS-debug caster's tap),
 ``quad_lut_2ch``, ``lut_2ch_fetch_parts``, ``sample_lut_2ch_quad`` and
 ``sample_lut_2ch``.
 
@@ -24,6 +25,8 @@ import torch
 
 from transmission_renderer_tpu_torch.scene.textures import (  # noqa: F401
     BLOCK_TEXELS,
+    IMAGE_MASK,
+    LAYER_SHIFT,
     META_COLS,
     META_LAYERS_COL,
     QUAD_GROUP,
@@ -40,6 +43,15 @@ def atlas_classes(meta: torch.Tensor) -> tuple:
     if mask < 1:
         raise ValueError("atlas meta is missing its layer-class tag")
     return tuple(lc + 1 for lc in range(mask.bit_length()) if (mask >> lc) & 1)
+
+
+def class_mask(classes: tuple) -> int:
+    """The layer-class set as a bit mask (bit L-1 for class L), as the
+    CUDA taps take it."""
+    mask = 0
+    for lc in classes:
+        mask |= 1 << (lc - 1)
+    return mask
 
 
 def _class_geometry(row_elems: int, layers: int):
@@ -156,9 +168,11 @@ def sample_bundle_rows(
     lod: torch.Tensor,  # [...]
     wrap_mode: int,
     classes: tuple,
+    trilinear: bool = True,
 ) -> torch.Tensor:
-    """Explicit-LOD trilinear sample of all bundle layers -> [..., Lmax, 4]
-    (two bilinear levels blended by the lod fraction)."""
+    """Explicit-LOD sample of all bundle layers -> [..., Lmax, 4]: two
+    bilinear levels blended by the lod fraction, or with ``trilinear``
+    False the bilinear tap at floor(lod) alone."""
     lod = torch.clamp(lod, min=0.0)
     layers_pix = rows[..., META_LAYERS_COL]
     l_max = max(classes)
@@ -166,11 +180,12 @@ def sample_bundle_rows(
     o0, w0, h0 = _level_meta_from_rows(rows, l0)
     c0 = _bilinear_level_quad(quads, o0, w0, h0, uv, wrap_mode, classes,
                               layers_pix)
-    o1, w1, h1 = _level_meta_from_rows(rows, l0 + 1)
-    c1 = _bilinear_level_quad(quads, o1, w1, h1, uv, wrap_mode, classes,
-                              layers_pix)
-    frac = (lod - l0.to(torch.float32))[..., None]
-    c0 = c0 + (c1 - c0) * frac
+    if trilinear:
+        o1, w1, h1 = _level_meta_from_rows(rows, l0 + 1)
+        c1 = _bilinear_level_quad(quads, o1, w1, h1, uv, wrap_mode, classes,
+                                  layers_pix)
+        frac = (lod - l0.to(torch.float32))[..., None]
+        c0 = c0 + (c1 - c0) * frac
     return c0.reshape(c0.shape[:-1] + (l_max, 4))
 
 
@@ -195,6 +210,27 @@ def sample_texture_rows(
     layer ``layer`` (layer 0 when None, exact for single images)."""
     s = sample_bundle_rows(quads, rows, uv, lod, wrap_mode, classes)
     return s[..., 0, :] if layer is None else select_layer(s, layer)
+
+
+def sample_texture(
+    quads: torch.Tensor,  # [R, row_elems] bfloat16
+    meta: torch.Tensor,  # [num_images, META_COLS + class tag] int32
+    texture_id: torch.Tensor,  # [...] int32 packed refs (callers mask -1)
+    uv: torch.Tensor,  # [..., 2]
+    lod: torch.Tensor,  # [...]
+    wrap_mode: int = WRAP_REPEAT,
+) -> torch.Tensor:
+    """Bilinear sample at floor(lod) of one texture per pixel -> [..., 4]:
+    the reference's ``sample_texture(..., trilinear=False)``, what the
+    AS-debug caster taps. ``texture_id`` is a packed ref (image | layer
+    << 16); one meta-row gather per sample."""
+    texture_id = torch.clamp(texture_id, min=0)
+    classes = atlas_classes(meta)
+    rows = meta[(texture_id & IMAGE_MASK).long()][..., :META_COLS]
+    s = sample_bundle_rows(quads, rows, uv, lod, wrap_mode, classes, trilinear=False)
+    if max(classes) == 1:
+        return s[..., 0, :]
+    return select_layer(s, texture_id >> LAYER_SHIFT)
 
 
 # ---------------------------------------------------------------------------

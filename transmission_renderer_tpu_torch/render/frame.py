@@ -440,8 +440,6 @@ def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool,
     def refuse(what, item):
         raise NotImplementedError(f"{what}: ROADMAP queue 1, {item}")
 
-    if config.debug_clusters:
-        refuse("--debug-clusters", "item 7 (debug views)")
     if config.half_res_refraction or config.quad_material_taps or config.bf16_light_math:
         refuse("the quality flags", "item 3 (the quality flags)")
     if not use_pallas:
@@ -828,6 +826,7 @@ def render_frame(
         ggx_lut=ggx_lut,
         tex_slots=flags.tex_slots,
         mat_matrix=build_material_matrix(scene, flags.tex_slots, flags.slot_bundles),
+        debug_clusters=config.debug_clusters,
         pallas_shade=use_pallas if config.pallas_shade is None else config.pallas_shade,
     )
 

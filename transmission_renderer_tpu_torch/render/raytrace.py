@@ -1,20 +1,30 @@
-"""Ray-traced shadows (the --ray-tracing variant).
+"""Ray-traced shadows (the --ray-tracing variant) and the AS-debug caster.
 
-Counterpart of ``transmission_renderer_tpu/render/raytrace.py``, the
-shadow half: ``_packet_swizzle_fns`` and ``shadow_factors``. Shadow rays
-scale the sun and point-light intensities (shader/src/lighting.rs:97-125,
-applied at :22-37 and :158-166). The AS-debug caster (``as_debug_view``,
-``render_as_debug_frame``) is not ported.
+Counterpart of ``transmission_renderer_tpu/render/raytrace.py``:
+``_packet_swizzle_fns`` and ``shadow_factors`` (shadow rays scale the sun
+and point-light intensities, shader/src/lighting.rs:97-125, applied at
+:22-37 and :158-166), and ``render_as_debug_frame`` / ``as_debug_view``
+(the T-key ray caster, shader/src/lib.rs:699-798: closest alpha-tested
+hit of per-pixel camera rays, unlit LOD-0 diffuse), whose walk is
+ops/bvh_closest.py's kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from transmission_renderer_tpu_torch.ops.bvh import BVH
-from transmission_renderer_tpu_torch.ops.bvh_packet import trace_occlusion_packets
+from transmission_renderer_tpu_torch.ops.bvh import BVH, refit_bvh
+from transmission_renderer_tpu_torch.ops.bvh_closest import alpha_clip_inputs, trace_closest
+from transmission_renderer_tpu_torch.ops.bvh_packet import (
+    kernel_walk_table,
+    ray_planes,
+    trace_occlusion_packets,
+)
+from transmission_renderer_tpu_torch.ops.texture import WRAP_REPEAT, sample_texture
 from transmission_renderer_tpu_torch.pbr.lights import Lights
 from transmission_renderer_tpu_torch.render.gbuffer import GBuffer
+from transmission_renderer_tpu_torch.scene.types import Scene, Similarity, similarity_apply
+from transmission_renderer_tpu_torch.utils.platform import f32_matmuls
 
 
 def _packet_swizzle_fns(shape: tuple, mode: str | None):
@@ -115,3 +125,78 @@ def shadow_factors(
     hit_k = torch.stack([unswz(hit[i]).reshape(shape) for i in range(k)])
     factors = torch.where(g.valid[None] & hit_k, 0.0, 1.0)
     return factors[0], torch.movedim(factors[1:], 0, -1)
+
+
+def render_as_debug_frame(scene: Scene, dl, params, lights: Lights, config, bvh: BVH):
+    """The AS-debug view's frame (the reference's T-key toggle): the
+    vertices transformed to world space, the BVH refit to them, the full
+    frame ray-cast -> linear [H, W, 3]. ``lights`` is accepted for
+    signature parity with render_frame (the view is unlit)."""
+    del lights
+    f32_matmuls()
+    vi = dl.vtx_inst.long()
+    inst_t = Similarity(
+        translation=scene.inst_transform.translation[vi],
+        scale=scene.inst_transform.scale[vi],
+        rotation=scene.inst_transform.rotation[vi],
+    )
+    vs = dl.vtx_src.long()
+    world_pos = similarity_apply(inst_t, scene.positions[vs])
+    uvs = scene.uvs[vs]
+    bvh = refit_bvh(bvh, dl.tri_vtx, world_pos)
+    # the host-computed inverse projection, as the raster path unprojects
+    return as_debug_view(scene, bvh, dl.tri_vtx, dl.tri_material, world_pos, uvs,
+                         torch.linalg.inv(params.view), params.inverse_perspective,
+                         config.width, config.height)
+
+
+def as_debug_view(
+    scene: Scene,
+    bvh: BVH,
+    tri_vertices: torch.Tensor,  # [TT, 3] int32
+    tri_material: torch.Tensor,  # [TT] int32
+    world_positions: torch.Tensor,  # [VV, 3]
+    uvs: torch.Tensor,  # [VV, 2]
+    view_inverse: torch.Tensor,  # [4, 4]
+    proj_inverse: torch.Tensor,  # [4, 4]
+    width: int,
+    height: int,
+) -> torch.Tensor:
+    """Full-screen ray-cast view (shader/src/lib.rs:699-798): camera rays
+    from the inverse view and projection, the closest hit in (0.01, 1000)
+    whose candidate passes the alpha test (LOD-0 diffuse alpha times the
+    factor >= the cutoff, every bucket), barycentric uv, LOD-0 diffuse
+    -> linear [H, W, 3], black where nothing is hit."""
+    dev = world_positions.device
+    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5
+    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    rc_x = (px / width).expand(height, width) * 2.0 - 1.0
+    rc_y = (py / height).expand(height, width) * 2.0 - 1.0
+    one = torch.ones_like(rc_x)
+    target = torch.stack([rc_x, rc_y, one, one], dim=-1) @ proj_inverse.T
+    local_dir = target[..., :3] / torch.linalg.vector_norm(target[..., :3], dim=-1,
+                                                           keepdim=True)
+    direction = local_dir @ view_inverse[:3, :3].T
+    origins = view_inverse[:3, 3].expand(direction.shape)
+
+    table = kernel_walk_table(bvh, tri_vertices, world_positions)
+    rays = ray_planes(origins, direction, 1000.0)
+    alpha = alpha_clip_inputs(scene, tri_vertices, uvs, tri_material)
+    hit, _, tri_id, u, v = trace_closest(bvh, table, rays, 0.01, alpha)
+    hit = hit.reshape(height, width)
+    u = u.reshape(height, width)
+    v = v.reshape(height, width)
+
+    safe_tri = torch.clamp(tri_id, min=0).long().reshape(height, width)
+    vidx = tri_vertices[safe_tri].long()
+    w0 = (1.0 - u - v)[..., None]
+    uv = (uvs[vidx[..., 0]] * w0 + uvs[vidx[..., 1]] * u[..., None]
+          + uvs[vidx[..., 2]] * v[..., None])
+    m = scene.materials
+    mid = tri_material[safe_tri].long()
+    diffuse = m.diffuse_factor[mid][..., :3]
+    tid = m.tex_diffuse[mid]
+    sample = sample_texture(scene.atlas_texels, scene.atlas_meta, tid, uv,
+                            torch.zeros_like(u), WRAP_REPEAT)
+    diffuse = torch.where((tid >= 0)[..., None], diffuse * sample[..., :3], diffuse)
+    return torch.where(hit[..., None], diffuse, 0.0)

@@ -8,14 +8,19 @@ shade_opaque, shade_transmission_flat and shade_transmission:
 
 - the kernel path (``ctx.pallas_shade``): the material taps (kernel 2),
   the fused shade (kernel 3), the pyramid + GGX-LUT fetch (kernel 4) and
-  the combine tail (shading.py:840-893, 952-1043). Where it cannot run it
-  raises NotImplementedError; it never falls back to the tensor path.
+  the combine tail (shading.py:840-893, 952-1043);
 - the tensor path (the reference's XLA formulation, shading.py:894-919,
   1067-1118): _evaluate_pixel_material with _normal_mapped,
-  _light_matrix and _evaluate_lights_common over pbr/brdf.py, taken when
-  ``ctx.pallas_shade`` is False, as the reference decides it
-  (frame.py:1215-1217). The reference's one-hot matmul row fetch
-  (onehot_rows) is its TPU form of a row gather; here it is the gather.
+  _light_matrix and _evaluate_lights_common over pbr/brdf.py, and the
+  cluster false colour of ``debug_clusters`` (shading.py:909-914).
+
+A pass takes the kernel path where the reference does
+(``_kernel_path_taps``): with ``ctx.pallas_shade`` (frame.py:1215-1217),
+single-row 128-px blocks, and a configuration that the reference's static
+gate ``pallas_shade_supported`` takes; every other pass, on either
+branch, shades through the tensor path over the same worklist. The
+reference's one-hot matmul row fetch (onehot_rows) is its TPU form of a
+row gather; here it is the gather.
 
 Cluster x/y divide by the cluster size as the reference's compiled frame
 does (a multiply by the float32 reciprocal), on both paths.
@@ -255,33 +260,39 @@ def bundle_tap_samples(scene: Scene, g: GBuffer, tex_slots: tuple,
     return out
 
 
-def _require_kernel_path(ctx: ShadeContext) -> None:
-    if ctx.mat_matrix is None or not pallas_shade_supported(
-        ctx, int(ctx.mat_matrix.table.shape[0]), ctx.framebuffer_size[0]
-    ):
-        raise NotImplementedError(
-            "the fused shade kernel does not take this configuration (the "
-            "reference would shade it through its XLA path, which the port "
-            "takes only with pallas_shade False): ROADMAP queue 1, other "
-            "frame variants"
-        )
-
-
-def _require_block_coords(block_py) -> None:
-    if block_py is None:
-        raise NotImplementedError(
-            "the shade kernel needs single-row 128-px blocks: a width that "
-            "is not a multiple of 128 takes the tensor path (pallas_shade "
-            "False): ROADMAP queue 1, other frame variants"
-        )
+def _kernel_path_taps(scene: Scene, g: GBuffer, ctx: ShadeContext, block_py):
+    """The reference's choice of the fused shade kernel for a pass
+    (shading.py:850-861 opaque, :966-977 transmission): with
+    ``pallas_shade``, single-row 128-px block coordinates and a
+    configuration the static gate ``pallas_shade_supported`` takes, the
+    material taps (kernel 2) for the kernel; else None, and the pass
+    shades through the tensor path over the same worklist. The
+    reference's taps also return an ``ok`` that is always True
+    (shading.py:773-839), so the gate alone decides. A static choice on
+    the configuration, never on a launch's outcome."""
+    if not ctx.pallas_shade or block_py is None or ctx.mat_matrix is None:
+        return None
+    if not pallas_shade_supported(ctx, int(ctx.mat_matrix.table.shape[0]),
+                                  ctx.framebuffer_size[0]):
+        return None
+    with pass_scope("material_taps"):
+        return bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
 
 
 def _require_tensor_path(ctx: ShadeContext) -> None:
-    for flag, item in ((ctx.debug_clusters, "--debug-clusters"),
-                       (ctx.quad_taps, "--quad-taps"), (ctx.bf16_lights, "--bf16-lights")):
+    for flag, item in ((ctx.quad_taps, "--quad-taps"), (ctx.bf16_lights, "--bf16-lights")):
         if flag:
             raise NotImplementedError(f"{item} on the tensor shading path: ROADMAP "
-                                      "queue 1, other frame variants")
+                                      "queue 1, item 3 (the quality flags)")
+
+
+# the cluster false colours (shader/src/lib.rs:647-664)
+_DEBUG_COLOURS = (
+    (0.0, 0.0, 0.0), (0.0, 0.0, 0.1647), (0.0, 0.0, 0.3647), (0.0, 0.0, 0.6647),
+    (0.0, 0.0, 0.9647), (0.0, 0.9255, 0.9255), (0.0, 0.5647, 0.0), (0.0, 0.7843, 0.0),
+    (1.0, 1.0, 0.0), (0.90588, 0.75294, 0.0), (1.0, 0.5647, 0.0), (1.0, 0.0, 0.0),
+    (0.8392, 0.0, 0.0), (1.0, 0.0, 1.0), (0.6, 0.3333, 0.7882),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -480,20 +491,24 @@ def shade_opaque_flat(scene: Scene, g: GBuffer, ctx: ShadeContext, px, py,
     flat [M] worklist -> (r, g, b) [M] planes, 0 on invalid pixels. The
     kernel path needs ``block_py`` / ``block_px0`` (the framebuffer row
     and first x of each single-row 128-px block)."""
-    if ctx.pallas_shade:
-        _require_block_coords(block_py)
-        _require_kernel_path(ctx)
-        with pass_scope("material_taps"):
-            samples = bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
+    samples = _kernel_path_taps(scene, g, ctx, block_py)
+    if samples is not None:
         return shade_opaque_pallas_planes(
             scene, g, ctx, block_py, block_px0, samples, ctx.tex_slots
         )
     _require_tensor_path(ctx)
     view = _view_dir(ctx, g)
     pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix)
-    result, _, _, _ = _evaluate_lights_common(
+    result, _, cluster, counts = _evaluate_lights_common(
         ctx, pm.params, view, g.position, pm.normal, g.depth, px, py, False)
-    out = torch.where(g.valid[..., None], result.diffuse + result.specular + pm.emission, 0.0)
+    out = result.diffuse + result.specular + pm.emission
+    if ctx.debug_clusters:
+        # the cluster false colour (shader/src/lib.rs:241-245)
+        colours = torch.tensor(_DEBUG_COLOURS, dtype=torch.float32, device=out.device)
+        c1 = colours[(counts.to(torch.int32) % 15).long()]
+        c2 = colours[(cluster % 15).long()]
+        out = c1 + (c2 - 0.5) * 0.025
+    out = torch.where(g.valid[..., None], out, 0.0)
     return tuple(out[:, c] for c in range(3))
 
 
@@ -514,11 +529,11 @@ def shade_opaque(scene: Scene, g: GBuffer, ctx: ShadeContext) -> tuple:
     return tuple(p.reshape(h, w) for p in planes)
 
 
-def _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py, block_px0):
-    """The fused pre-shade (kernel 3), the pyramid + GGX-LUT fetch
-    (kernel 4), then the combine tail (shading.py:952-1043)."""
-    with pass_scope("material_taps"):
-        samples = bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
+def _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py, block_px0,
+                              samples):
+    """The fused pre-shade (kernel 3) over the material taps, the pyramid
+    + GGX-LUT fetch (kernel 4), then the combine tail
+    (shading.py:952-1043)."""
     p = shade_transmission_pallas_pre(
         scene, g, ctx, block_py, block_px0, samples, ctx.tex_slots
     )
@@ -561,11 +576,10 @@ def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
             "per-pixel (textured) transmissive roughness needs the full "
             "pyramid's dynamic-level fetch: ROADMAP queue 1, other frame variants"
         )
-    if ctx.pallas_shade:
-        _require_block_coords(block_py)
-        _require_kernel_path(ctx)
+    samples = _kernel_path_taps(scene, g, ctx, block_py)
+    if samples is not None:
         return _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py,
-                                         block_px0)
+                                         block_px0, samples)
     _require_tensor_path(ctx)
     view = _view_dir(ctx, g)
     pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix)

@@ -1,8 +1,8 @@
 """Scene data model on tensors: quaternion and ``Similarity`` math, the
 material table and the frozen ``Scene``.
 
-Counterpart of ``transmission_renderer_tpu/scene/types.py`` (quat_rotate,
-quat_from_axis_angle, Similarity, similarity_apply, MaterialsSoA,
+Counterpart of ``transmission_renderer_tpu/scene/types.py`` (quat_mul,
+quat_rotate, quat_from_rotation_y, quat_from_axis_angle, Similarity, similarity_apply, MaterialsSoA,
 default_material, pack_materials, Scene). Same fields, same arithmetic order; arrays are
 ``torch.Tensor`` and ``to_device`` moves a whole NamedTuple tree.
 """
@@ -21,6 +21,27 @@ import torch
 
 def quat_identity() -> np.ndarray:
     return np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a * b of quaternions [..., 4] (xyzw), the
+    reference's term order."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
+def quat_from_rotation_y(angle: float) -> np.ndarray:
+    """Unit quaternion (xyzw) of a rotation by ``angle`` about +y."""
+    return np.array([0.0, np.sin(angle / 2.0), 0.0, np.cos(angle / 2.0)], np.float32)
 
 
 def quat_from_axis_angle(axis, angle: float) -> np.ndarray:
@@ -162,6 +183,10 @@ class Scene(NamedTuple):
     @property
     def num_instances(self) -> int:
         return self.inst_primitive_id.shape[0]
+
+    @property
+    def num_triangles(self) -> int:
+        return self.indices.shape[0]
 
 
 def to_device(tree, device):

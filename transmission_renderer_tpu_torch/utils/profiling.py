@@ -1,16 +1,19 @@
-"""Per-pass profiler ranges.
+"""Per-pass profiler ranges and the trace capture.
 
-Counterpart of ``transmission_renderer_tpu/utils/profiling.py::pass_scope``:
-there a pass is a ``jax.named_scope``; here it is a
+Counterpart of ``transmission_renderer_tpu/utils/profiling.py``
+(``pass_scope``, ``trace``): there a pass is a ``jax.named_scope`` and a
+trace is ``jax.profiler``'s; here a pass is a
 ``torch.profiler.record_function`` range (which ``torch.profiler`` shows
 on the host and, with CUDA activity, against the kernels it launched)
-plus an NVTX range when a CUDA device is present. The pass names are the
-JAX package's, so a per-pass table reads the same in both.
+plus an NVTX range when a CUDA device is present, and ``trace`` writes a
+``torch.profiler`` Chrome trace. The pass names are the JAX package's, so
+a per-pass table reads the same in both.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -40,3 +43,23 @@ def pass_scope(name: str):
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a profiler trace of the block into ``log_dir/trace.json``
+    (Chrome trace format: open in Perfetto or chrome://tracing): host
+    activity, and the card's kernels when a CUDA device is present. The
+    pass ranges appear under their PASS_NAMES."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -165,6 +165,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    bit against its plain version on the frame's calls; (f) --procedural dragon
    --spotlights --rotate-model --frames 3: three PNGs, finite, frames 1
    and 2 differ from frame 0.
+12. the frame variants (variants_phase), each frame at 1920x1080 unless
+   said, with every kernel call through the kernel and its plain version
+   at phase 4's tolerances (kernels 1 and 6 bit for bit, kernel 5's hit
+   sets exact; a call on the very same inputs as one held in an earlier
+   phase, such as a pass two frames share, is reported and not replayed
+   again), the launches with the counts reset, a finite image in [0, 1],
+   and the median ms/frame over 5 after 2 beside the flagship's from the
+   same phase: (a) the flagship with each quality flag, each within the
+   reference's own bound of the exact flagship frame (half-res 0.02 and
+   quad taps 0.1 linear RMSE, bf16 1e-2 sRGB RMSE); (b) the flagship with
+   a metallic-roughness texture on its glass (textured_glass_dragon): no
+   static level set, so kernel 4's full-pyramid form, its ms, plain ms
+   and bound, and the frame within linear RMSE 1e-4 of the same frame
+   through the tensor shade; (c) the dense transmission raster and shade
+   (tile cap None, block cap None) with ray-traced shadows, both passes'
+   rays in 8x16 groups: equal to phase 7's fused sparse frame; (d) the
+   flagship at 1600x900 (partial last tile column and row, tensor
+   shades); (e) the stress frame at the bench's config with ray-traced
+   shadows (the compacted transmission worklist's rays in its own order;
+   nowhere brighter in HDR than without them); (f) the visibility-buffer
+   flagship with ray-traced shadows (likewise against phase 8's frame);
+   (g) cli.main with each flag: (a)'s frames exactly, and (a)'s launches.
 
 The kernels JSON object reports every kernel on the widest path that
 launches it, named in its "frame" key: kernels 1-5 on the ray-traced
@@ -172,7 +194,9 @@ frame ("rt", phase 7), kernel 6 on the visibility-buffer frame ("vis",
 phase 8; the bindless frame, with 48 lights, is kernel 3's busiest,
 reported in phase 10(f)), the closest-hit walk on the AS-debug dragon
 ("as_debug", phase 11(b); it replaces no TPU kernel, its "replaces"
-says so): launches, worst parity error over
+says so); kernel 4's row also carries its full form on the
+textured-roughness frame ("full_form", phase 12(b)): launches, worst
+parity error over
 every frame checked, ms per frame of the kernel (the card's time for
 the frame's calls, CUDA events queued behind a spin kernel so that they
 do not read the host's enqueue time, see device_ms; the host's time is
@@ -429,7 +453,13 @@ def kernel_work(name: str, call, data=None) -> tuple:
     if name == "transmission_fetch":
         pyramid, level_set, uv_x = args[0], args[1], args[2]
         m = uv_x.shape[0]
-        levels = sum(pyramid.levels[k].nbytes for k in level_set)
+        if len(level_set) == pyramid.num_levels:
+            # the full form (every level, level 0 the whole framebuffer):
+            # the texels (3 float planes) of the two levels each pixel of
+            # this call brackets, each counted once
+            levels = 12 * full_form_texels(pyramid, args[2], args[3], args[4])
+        else:
+            levels = sum(pyramid.levels[k].nbytes for k in level_set)
         # 5 planes in, 5 out; two tent-weighted bilinear level taps of 3
         # channels and a bilinear LUT tap of 2
         return 5 * m * 4 + levels + args[7].nbytes + 5 * m * 4, m * 80
@@ -486,6 +516,27 @@ def kernel_work(name: str, call, data=None) -> tuple:
                + alphas[0] * 36 + alphas[1] * 2)
         return nbytes, ops
     raise KeyError(name)
+
+
+def full_form_texels(pyramid, uv_x, uv_y, lod) -> int:
+    """Distinct texels that kernel 4's full form reads for these pixels:
+    the four texels of the clamp-to-edge bilinear footprint
+    (csrc/transmission_fetch.cu::bilinear_clamp) at each of the two levels
+    bracketing each lod, as ids into the levels laid end to end."""
+    import torch
+
+    top = pyramid.num_levels - 1
+    l0 = torch.floor(torch.clamp(lod, 0.0, float(top))).long()
+    ids, base = [], 0
+    for k, (w, h) in enumerate(zip(pyramid.widths, pyramid.heights)):
+        at = (l0 == k) | (torch.clamp(l0 + 1, max=top) == k)
+        x0 = torch.floor(uv_x[at] * float(w) - 0.5).long().clamp(0, w - 1)
+        y0 = torch.floor(uv_y[at] * float(h) - 0.5).long().clamp(0, h - 1)
+        for yy in (y0, (y0 + 1).clamp(max=h - 1)):
+            for xx in (x0, (x0 + 1).clamp(max=w - 1)):
+                ids.append(base + yy * w + xx)
+        base += w * h
+    return int(torch.unique(torch.cat(ids)).numel())
 
 
 def bound_of(works) -> tuple:
@@ -573,15 +624,50 @@ def gbuf_counts(calls) -> list:
             for a, kw in calls]
 
 
+# every call held against its plain version so far, per kernel: a later
+# frame's call on the very same inputs (a pass two frames share) was held
+# there, and is not replayed through the plain version again
+VERIFIED: dict = {}
+
+
+def same_inputs(a, b) -> bool:
+    """Whether two recorded call arguments are equal, tensors by value."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+                and bool(torch.equal(a, b)))
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(same_inputs(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_inputs(a[k], b[k]) for k in a))
+    if dataclasses.is_dataclass(a):
+        return (type(a) is type(b) and all(same_inputs(getattr(a, f.name), getattr(b, f.name))
+                                           for f in dataclasses.fields(a)))
+    return type(a) is type(b) and a == b
+
+
 def check_parity(handles, calls, max_err, tag: str) -> None:
     """Replay every recorded call through the kernel and the plain
-    version; raise on a disagreement."""
+    version; raise on a disagreement. A call on the same inputs as one
+    held before is reported as such and not replayed again."""
     import torch
     from transmission_renderer_tpu_torch.render.shade_kernel import shade_work
 
     for h in handles:
         require(len(calls[h.name]) > 0, f"{h.name}: the frame never called it")
+        seen = VERIFIED.setdefault(h.name, [])
         for i, call in enumerate(calls[h.name]):
+            prev = next((t for t, c in seen if same_inputs(c, call)), None)
+            if prev is not None:
+                log(f"parity {tag}{h.name}[{i}]: the same inputs as {prev}, held there")
+                continue
+            seen.append((f"{tag}{h.name}[{i}]", call))
             err, bad, ok = parity(h.name, h.replay(call, True), h.replay(call, False))
             torch.cuda.synchronize()
             log(f"parity {tag}{h.name}[{i}]: max_abs_err {err:.3e}, differing {bad}, "
@@ -741,6 +827,17 @@ def golden_keep_mask(cfg, tiles=GOLDEN_DROPPED_TILES):
     return keep.reshape(cfg.tiles_y * cfg.tile_h, -1)[: cfg.height, : cfg.width]
 
 
+def flagship_rig():
+    """The flagship's camera and sun (tests/golden_defs.py::render_hd_golden)."""
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
+    rig.camera.pitch = -0.25
+    rig.sun_yaw = 4.8
+    return rig
+
+
 def flagship_scene(dev):
     """The flagship scene, camera and lights (tests/golden_defs.py::
     render_hd_golden) on ``dev`` -> (builder, scene, draw list, flags,
@@ -749,14 +846,10 @@ def flagship_scene(dev):
     from transmission_renderer_tpu_torch.models.procedural import build_dragon_scene
     from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
     from transmission_renderer_tpu_torch.render.frame import make_frame_params
-    from transmission_renderer_tpu_torch.scene.camera import CameraRig
 
     builder = build_dragon_scene(roughness_override=0.25)
     scene, dl, flags = builder.finish_bundle(device=dev)
-    rig = CameraRig()
-    rig.camera.position = np.array([0.0, 2.2, 1.5], np.float32)
-    rig.camera.pitch = -0.25
-    rig.sun_yaw = 4.8
+    rig = flagship_rig()
     params = make_frame_params(RenderConfig(width=1920, height=1080), rig.camera.view_matrix(),
                                rig.camera.position, rig.sun_dir(), device=dev)
     lights = pack_lights([
@@ -1437,6 +1530,301 @@ def cli_phase(card: str, max_err: dict, flagship_img) -> dict:
     return row
 
 
+# Phase 12's quality flags, each with the reference's own pinned bound on
+# the frame against the exact one (RMSE): tests/test_e2e.py:93-103
+# (half-res, linear), tests/test_quad_taps.py:36-50 (quad taps, linear),
+# tests/test_goldens.py:62-77 (bf16, sRGB).
+FLAG_BOUNDS = {"half_res_refraction": (0.02, "linear"), "quad_material_taps": (0.1, "linear"),
+               "bf16_light_math": (1e-2, "sRGB")}
+FLAG_ARGS = {"half_res_refraction": "--half-res-refraction",
+             "quad_material_taps": "--quad-taps", "bf16_light_math": "--bf16-lights"}
+
+
+def roughness_image(size: int = 64, seed: int = 5) -> np.ndarray:
+    """The glass's metallic-roughness texture of the textured-roughness
+    frame (tests/variants_defs.py builds the same): roughness (G) a wave
+    over [0.05, 0.95] with noise, metallic (B) 0."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size] / size
+    g = np.clip(0.5 + 0.45 * np.sin(6.0 * x + 3.0 * y)
+                + 0.05 * rng.standard_normal((size, size)), 0.0, 1.0)
+    img = np.zeros((size, size, 4), np.uint8)
+    img[..., 1] = np.round(g * 255.0).astype(np.uint8)
+    img[..., 3] = 255
+    return img
+
+
+def textured_glass_dragon():
+    """The flagship scene (build_dragon_scene at default detail) with a
+    metallic-roughness texture on its glass, through the port's
+    SceneBuilder: the transmissive roughness is per pixel, so the frame
+    has no static pyramid level set."""
+    from transmission_renderer_tpu_torch.config import BUCKET_OPAQUE, BUCKET_TRANSMISSION
+    from transmission_renderer_tpu_torch.models import procedural as proc
+    from transmission_renderer_tpu_torch.scene.builder import SceneBuilder
+
+    b = SceneBuilder()
+    checker = b.add_texture(proc.checkerboard_texture(512, 12, 230, 40), srgb=True)
+    floor_mat = b.add_material(tex_diffuse=checker, roughness_factor=0.7)
+    wall_mat = b.add_material(diffuse_factor=(0.35, 0.5, 0.7, 1.0), roughness_factor=0.9)
+    glass = b.add_material(
+        diffuse_factor=(1.0, 1.0, 1.0, 1.0), roughness_factor=1.0, metallic_factor=0.0,
+        transmission_factor=1.0, thickness_factor=0.6, attenuation_distance=1.0,
+        attenuation_colour=(0.9, 0.4, 0.25), index_of_refraction=1.5,
+        tex_metallic_roughness=b.add_texture(roughness_image(), srgb=False))
+    p_floor = b.add_primitive(*proc.make_plane_mesh(10.0), bucket=BUCKET_OPAQUE)
+    p_wall = b.add_primitive(*proc.make_box_mesh((6.0, 4.0, 0.2)), bucket=BUCKET_OPAQUE)
+    p_glass = b.add_primitive(*proc._displaced_sphere(180, 360, amp=0.25),
+                              bucket=BUCKET_TRANSMISSION)
+    p_prop = b.add_primitive(*proc.make_sphere_mesh(24, 48), bucket=BUCKET_OPAQUE)
+    b.add_instance(p_floor, floor_mat)
+    b.add_instance(p_wall, wall_mat, translation=(0.0, 3.0, -7.0))
+    b.add_instance(p_glass, glass, translation=(0.0, 1.6, -3.5), scale=1.2)
+    for x, z, colour in ((-2.4, -4.6, (0.9, 0.2, 0.1, 1.0)), (2.4, -4.8, (0.1, 0.7, 0.2, 1.0))):
+        b.add_instance(p_prop, b.add_material(diffuse_factor=colour, roughness_factor=0.5),
+                       translation=(x, 0.8, z), scale=0.8)
+    return b
+
+
+def ray_orders(frame) -> tuple:
+    """(frame's result, the ray order (packet_swizzle; None: the
+    compacted worklist's own) of each shadow_factors call it made)."""
+    from transmission_renderer_tpu_torch.render import frame as pframe
+
+    real, orders = pframe.shadow_factors, []
+
+    def recorded(*args, **kwargs):
+        orders.append(kwargs.get("packet_swizzle"))
+        return real(*args, **kwargs)
+
+    pframe.shadow_factors = recorded
+    try:
+        out = frame()
+    finally:
+        pframe.shadow_factors = real
+    return out, tuple(orders)
+
+
+def image_ok(tag: str, img, shape: tuple) -> None:
+    import torch
+
+    require(tuple(img.shape) == shape, f"{tag}: image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), f"{tag}: image has non-finite values")
+    lo, hi = float(img.min()), float(img.max())
+    require(0.0 <= lo and hi <= 1.0, f"{tag}: image outside [0, 1]: [{lo}, {hi}]")
+
+
+def variants_phase(card: str, max_err: dict, base: dict) -> dict:
+    """Phase 12, the frame variants ported last: the quality flags, the
+    textured-roughness frame (kernel 4's full form), the dense transmission
+    raster and shade with ray-traced shadows, 1600x900, ray-traced shadows
+    with alpha clip and on the visibility-buffer branch, and the CLI's
+    flags. Per frame: every kernel call against its plain version (a call
+    on the same inputs as an earlier frame's is held there), the launches,
+    the image, the median ms/frame over 5 after 2 beside the flagship's
+    from the same phase. -> kernel 4's full form's figures."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.ops import bvh_packet, raster_vis, tap_finish
+    from transmission_renderer_tpu_torch.ops.cull import transform_vertices
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+    from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
+
+    dev = torch.device("cuda", 0)
+    scene, dl, flags, params, lights, bvh = (base[k] for k in (
+        "scene", "dl", "flags", "params", "lights", "bvh"))
+    cfg = RenderConfig(width=1920, height=1080)
+    handles = port_handles()[:5]
+    names = [h.name for h in handles]
+    hd = (1080, 1920, 3)
+
+    def launches_of(**want):
+        return {n: want.get(n, 0) for n in names}
+
+    flag_ms = statistics.median(timed_frames(lambda: render_frame(
+        scene, dl, params, lights, cfg, flags), 2, 5))
+    log(f"variants: the flagship 1920x1080 on [{card}]: median {flag_ms:.3f} ms/frame "
+        f"(5 after 2, this phase)")
+
+    def run(tag, frame, expect, shape=hd, occl=None):
+        """Parity on every call, the launches, the image, the timing ->
+        (image, hdr, diagnostics, calls, launches)."""
+        calls, orders = ray_orders(lambda: capture(handles, frame))
+        if occl is not None:
+            n_kinds, tri_vertices, positions, want = occl
+            require(orders == want, f"{tag}: shadow rays traced in the orders {orders}, "
+                    f"expected {want}")
+            require(len(calls["bvh_occlusion"]) == 2, f"{tag}: two occlusion calls")
+            check_occlusion(calls["bvh_occlusion"], n_kinds, f"{tag} ", tri_vertices,
+                            positions)
+            log(f"{tag}: kernel 5 exact on the frame's ray orders "
+                f"{tuple(o or 'worklist' for o in orders)}")
+            max_err.setdefault("bvh_occlusion", 0.0)
+        check_parity([h for h in handles if calls[h.name] and h.name != "bvh_occlusion"],
+                     calls, max_err, f"{tag} ")
+        (img, hdr, diag), got = count_launches(handles, frame, return_hdr=True,
+                                               return_diagnostics=True)
+        log(f"{tag} launches per frame: {got}")
+        require(got == expect, f"{tag}: launch counts {got}, expected {expect}")
+        image_ok(tag, img, shape)
+        times = timed_frames(frame, 2, 5)
+        med = statistics.median(times)
+        log(f"{tag} frame {shape[1]}x{shape[0]} on [{card}]: median {med:.3f} ms/frame "
+            f"({1000.0 / med:.2f} fps; the flagship {flag_ms:.3f}), min {min(times):.3f}, "
+            f"max {max(times):.3f}; diagnostics {diagnostics_dict(diag)}")
+        return img, hdr, diag, calls, got
+
+    exact_img = base["img"]
+    flag_imgs = {}
+    # (a) the flagship with each quality flag: the reference's gate sends
+    # quad taps and bf16 to the tensor shade (both passes), half-res to the
+    # dense tensor transmission shade (the opaque pass stays on kernels 2-3)
+    for flag, (bound, space) in FLAG_BOUNDS.items():
+        cfg_f = dataclasses.replace(cfg, **{flag: True})
+        half = flag == "half_res_refraction"
+        expect = launches_of(raster_gbuf=2, tap_finish=int(half), shade=int(half))
+        img_f, _, diag, _, _ = run(f"variants (a) {flag}", lambda c=cfg_f, **kw: render_frame(
+            scene, dl, params, lights, c, flags, **kw), expect)
+        require(not diag.overflowed(), f"{flag}: capacity overflow {diag}")
+        a, b = img_f.cpu().numpy(), exact_img.cpu().numpy()
+        if space == "sRGB":
+            a, b = linear_to_srgb(a), linear_to_srgb(b)
+        err = float(np.sqrt(np.mean((a - b) ** 2)))
+        log(f"variants (a) {flag}: {space} RMSE {err:.6f} against the exact flagship frame "
+            f"(the reference's bound {bound})")
+        require(0.0 < err < bound, f"{flag}: RMSE {err} against the exact frame")
+        flag_imgs[flag] = img_f
+
+    # (b) per-pixel (textured) glass roughness: no level set, kernel 4's
+    # full form on the fused sparse path; the same frame through the
+    # tensor shade (pallas_shade False, the reference's XLA formulation)
+    builder_t = textured_glass_dragon()
+    scene_t, dl_t, flags_t = builder_t.finish_bundle(device=dev)
+    require(flags_t.transmission_ior_roughness is None, "textured glass: a static level set")
+    img_t, _, diag, calls_t, got_t = run(
+        "variants (b) textured roughness", lambda **kw: render_frame(
+            scene_t, dl_t, params, lights, cfg, flags_t, **kw),
+        launches_of(**expected_launches(scene_t, flags_t)))
+    require(not diag.overflowed(), f"textured roughness: capacity overflow {diag}")
+    (fetch,) = calls_t["transmission_fetch"]
+    require(fetch[0][1] == tuple(range(fetch[0][0].num_levels)),
+            f"textured roughness: kernel 4 ran over the level set {fetch[0][1]}")
+    lod = fetch[0][4]
+    lvl = torch.floor(torch.clamp(lod, 0.0, 10.0))[lod > 0]
+    log(f"variants (b): kernel 4's full form over {fetch[0][2].shape[0]} pixels, levels "
+        f"{sorted(set(int(v) for v in torch.unique(lvl).tolist()))} bracketed")
+    tensor_t = render_frame(scene_t, dl_t, params, lights,
+                            dataclasses.replace(cfg, pallas_shade=False), flags_t)
+    err = float(((img_t - tensor_t) ** 2).mean().sqrt())
+    log(f"variants (b): linear RMSE {err:.3e} (max abs {float((img_t - tensor_t).abs().max()):.3e})"
+        f" against the same frame through the tensor shade (limit 1e-4)")
+    require(err < 1e-4, f"textured roughness: kernel route vs tensor route RMSE {err}")
+    h = tap_finish.FETCH_KERNEL
+    k_ms, h_ms = kernel_ms(h, calls_t[h.name])
+    p_ms = plain_ms(h, calls_t[h.name])
+    works = [kernel_work(h.name, c) for c in calls_t[h.name]]
+    b_ms, b_by = bound_of(works)
+    log(f"variants kernel transmission_fetch (full form) on [{card}]: {k_ms:.4f} ms/frame on "
+        f"the device (host {h_ms:.3f}), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms by "
+        f"{b_by} ({sum(w[0] for w in works)} bytes, {sum(w[1] for w in works)} operations), "
+        f"{b_ms / k_ms:.4f} of the bound reached")
+    full_form = {"frame": "textured_roughness", "launches": got_t[h.name], "ms": k_ms, "plain_ms": p_ms,
+                 "bound_ms": b_ms, "bound_by": b_by}
+
+    # (c) the dense transmission raster and shade with ray-traced shadows:
+    # both passes' rays in 8x16 groups; the same image as phase 7's fused
+    # sparse frame (the same pixels, the same rays)
+    world_pos = transform_vertices(scene, dl, params.proj_view)[0]
+    n_kinds = 1 + lights.num
+    cfg_d = dataclasses.replace(cfg, ray_traced_shadows=True, transmission_tile_cap_frac=None,
+                                transmission_block_cap_frac=None)
+    img_d, _, diag, _, _ = run(
+        "variants (c) dense transmission rt", lambda **kw: render_frame(
+            scene, dl, params, lights, cfg_d, flags, bvh=bvh, **kw),
+        launches_of(raster_gbuf=2, tap_finish=1, shade=2, transmission_fetch=1,
+                    bvh_occlusion=2),
+        occl=(n_kinds, dl.tri_vtx, world_pos, ("2d", "2d")))
+    require(diag.transmission_tile_capacity == 0 and diag.transmission_block_capacity == 0,
+            "dense: a capped transmission path")
+    err = float((img_d - base["img_rt"]).abs().max())
+    log(f"variants (c): max abs error {err:.3e} against phase 7's fused sparse rt frame "
+        f"(limit 1e-5)")
+    require(err <= 1e-5, f"dense rt frame vs fused rt frame: {err}")
+
+    # (d) 1600x900: kernel 1 over a partial last tile column and row, both
+    # shades on the tensor path, the sparse-tile transmissive raster and
+    # the compacted shade
+    cfg_w = RenderConfig(width=1600, height=900)
+    params_w = make_params(cfg_w, flagship_rig(), dev)
+    img_w, _, diag, _, _ = run(
+        "variants (d) 1600x900", lambda **kw: render_frame(
+            scene, dl, params_w, lights, cfg_w, flags, **kw),
+        launches_of(raster_gbuf=2), shape=(900, 1600, 3))
+    require(not diag.overflowed(), f"1600x900: capacity overflow {diag}")
+
+    # (e) the stress frame at the bench's config with ray-traced shadows:
+    # the compacted transmission worklist's rays in its own order
+    t0 = time.perf_counter()
+    sbuilder = build_stress_scene()
+    s_scene, s_dl, s_flags = sbuilder.finish_bundle(device=dev)
+    s_bvh = sbuilder.build_rt_bvh(device=dev)
+    cfg_s = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125)
+    s_params = make_params(cfg_s, bench_rig(0), dev)
+    s_lights = pack_lights([point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
+                            point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0)], device=dev)
+    log(f"variants (e): stress BVH over {s_bvh.num_tris} triangles built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfg_srt = dataclasses.replace(cfg_s, ray_traced_shadows=True)
+    _, s_hdr = render_frame(s_scene, s_dl, s_params, s_lights, cfg_s, s_flags, return_hdr=True)
+    _, hdr_s, diag, _, _ = run(
+        "variants (e) stress rt", lambda **kw: render_frame(
+            s_scene, s_dl, s_params, s_lights, cfg_srt, s_flags, bvh=s_bvh, **kw),
+        launches_of(raster_gbuf=10, tap_finish=1, shade=2, transmission_fetch=1,
+                    bvh_occlusion=2),
+        occl=(n_kinds, s_dl.tri_vtx, transform_vertices(s_scene, s_dl, s_params.proj_view)[0],
+              ("2d", None)))
+    brighter = float((hdr_s - s_hdr).max())
+    log(f"variants (e): HDR at most {brighter:.3e} brighter than the stress frame without "
+        f"shadows; {int(((s_hdr - hdr_s).amax(dim=-1) > 0.05).sum())} pixels darker by 0.05")
+    require(brighter <= 1e-5 and bool((hdr_s < s_hdr).any()), "stress rt: shadows brightened")
+
+    # (f) the visibility-buffer flagship with ray-traced shadows
+    cfg_vrt = RenderConfig(width=1920, height=1080, use_pallas_raster=False,
+                           ray_traced_shadows=True)
+    vis_handles = handles + (raster_vis.KERNEL,)
+    handles, names = vis_handles, [h.name for h in vis_handles]
+    _, hdr_v, diag, _, _ = run(
+        "variants (f) vis rt", lambda **kw: render_frame(
+            scene, dl, params, lights, cfg_vrt, flags, bvh=bvh, **kw),
+        launches_of(raster_vis=2, bvh_occlusion=2),
+        occl=(n_kinds, dl.tri_vtx, world_pos, ("2d", None)))
+    brighter = float((hdr_v - base["hdr_vis"]).max())
+    log(f"variants (f): HDR at most {brighter:.3e} brighter than phase 8's frame")
+    require(brighter <= 1e-5 and bool((hdr_v < base["hdr_vis"]).any()),
+            "vis rt: shadows brightened")
+
+    # (g) the CLI with each flag: (a)'s frames exactly
+    handles = port_handles()
+    with tempfile.TemporaryDirectory() as tmp:
+        for flag, arg in FLAG_ARGS.items():
+            frames, _, got, _ = cli_run(handles, ["--procedural", "dragon",
+                                                  "--roughness-override", "0.25", arg,
+                                                  "-o", os.path.join(tmp, "f.png")])
+            err = float((torch.from_numpy(frames[0]) - flag_imgs[flag].cpu()).abs().max())
+            log(f"variants (g) cli {arg}: max abs error {err:.3e} against (a)'s frame")
+            require(err == 0.0, f"cli {arg}: frame differs from render_frame's")
+            half = flag == "half_res_refraction"
+            require(got == {n.name: 0 for n in handles} | {
+                "raster_gbuf": 2, "tap_finish": int(half), "shade": int(half)},
+                f"cli {arg}: launches {got}")
+    return full_form
+
+
 def port_handles() -> tuple:
     """Every kernel's handle: the flagship's four, then the occlusion
     walk (ray-traced frames), the visibility raster (vis frames) and the
@@ -1726,8 +2114,8 @@ def main() -> int:
     check_parity((raster_vis.KERNEL,), k6_calls, max_err, "vis kernel-6 order ")
 
     # (b) + (c) one frame with the counts reset
-    (img_vis, diag), vis_launches = count_launches(vis_handles, vis_frame,
-                                                   return_diagnostics=True)
+    (img_vis, hdr_vis, diag), vis_launches = count_launches(
+        vis_handles, vis_frame, return_hdr=True, return_diagnostics=True)
     log(f"vis launches per frame: {vis_launches}")
     expect = dict.fromkeys(vis_launches, 0)
     expect["raster_vis"] = 2
@@ -1802,6 +2190,14 @@ def main() -> int:
 
     # ---- 11. the CLI ---------------------------------------------------------------
     kernel_rows.append(cli_phase(card, max_err, img))
+
+    # ---- 12. the frame variants --------------------------------------------------
+    full_form = variants_phase(card, max_err, {
+        "scene": scene, "dl": dl, "flags": flags, "params": params, "lights": lights,
+        "bvh": bvh, "img": img, "img_rt": img_rt, "hdr_vis": hdr_vis})
+    for row in kernel_rows:  # kernel 4's row covers both of its forms
+        if row["name"] == "transmission_fetch":
+            row["full_form"] = full_form
 
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]

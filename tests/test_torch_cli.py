@@ -8,6 +8,10 @@
   sRGB RMSE 4e-3; the frames of the last must differ);
 - ``--interactive`` on a scripted stdin, ``--profile`` (the pass ranges in
   the trace), ``--cluster-wireframe`` and ``--debug-clusters``;
+- the quality flags ``--half-res-refraction``, ``--quad-taps`` and
+  ``--bf16-lights`` on the low-detail dragon against the reference's
+  ``cli.main`` (each PNG within the goldens' sRGB RMSE 4e-3, and each flag
+  changes the port's frame);
 - every mode the port does not have yet exits 2 naming its ROADMAP item,
   and without a card and without ``--cpu`` the CLI exits non-zero;
 - ``CameraRig`` (update, move_relative, rotate, update_sun) and
@@ -163,15 +167,27 @@ def test_debug_views_render(tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--devices", "2"], "item 8"),
     (["--debug-checks"], "item 10"),
-    (["--half-res-refraction"], "item 3"),
-    (["--quad-taps"], "item 3"),
-    (["--bf16-lights"], "item 3"),
 ])
 def test_unported_modes_exit_2(flag, item, tmp_path, capsys):
     argv = ["--cpu", "--procedural", "test", "-o", str(tmp_path / "u.png")] + SMALL + flag
     assert cli.main(argv) == 2
     assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flag", ["--half-res-refraction", "--quad-taps", "--bf16-lights"])
+def test_quality_flags_match_reference(flag, tmp_path):
+    """Each quality flag renders the low-detail dragon (glass over a
+    checker floor) as the reference's CLI does, and moves the frame."""
+    argv = ["--cpu", "--procedural", "dragon", "--detail", "0.2"] + SMALL
+    assert jcli.main(argv + [flag, "-o", str(tmp_path / "ref.png")]) == 0
+    frames = []
+    assert cli.main(argv + [flag, "-o", str(tmp_path / "port.png")], frames_out=frames) == 0
+    assert cli.main(argv + ["-o", str(tmp_path / "exact.png")], frames_out=frames) == 0
+    got = _srgb(str(tmp_path / "port.png"))
+    assert got.shape == (72, 128, 3) and np.isfinite(frames[0]).all()
+    assert _rmse(got, _srgb(str(tmp_path / "ref.png"))) < GOLDEN_RMSE
+    assert np.abs(frames[0] - frames[1]).max() > 1e-3
 
 
 def test_no_card_exits_nonzero(tmp_path, monkeypatch, capsys):

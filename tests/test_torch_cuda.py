@@ -207,6 +207,40 @@ def _occlusion_small_mesh(dead_every):
     return got.cpu(), ref
 
 
+@pytest.mark.parametrize("h,w", [(72, 128), (37, 91), (900, 1600)])
+def test_transmission_fetch_full_form_matches_plain(h, w):
+    """Kernel 4's full-pyramid form (no level set: per-pixel roughness,
+    the kernel over every level) against its plain version
+    (mipchain.sample_pyramid_lod(level_set=None) and the LUT tap) at 1e-6, over odd level sizes, lods below 0 and past
+    the top and uvs outside [0, 1]; its launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.ops import mipchain, tap_finish
+    from transmission_renderer_tpu_torch.utils.ggx_lut import default_ggx_lut
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(h + w)
+    img = torch.from_numpy(rng.uniform(0, 4, (3, h, w)).astype(np.float32)).to(dev)
+    pyr = mipchain.build_pyramid(tuple(img), level_set=None)
+    m = 8192
+    top = pyr.num_levels - 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    uv = rng.uniform(-0.2, 1.2, (m, 2))
+    lod = rng.uniform(-2.0, top + 3.0, m)
+    lod[: top + 1] = np.arange(top + 1)
+    args = (pyr, None, t(uv[:, 0]), t(uv[:, 1]), t(lod), t(rng.uniform(-0.1, 1.1, m)),
+            t(rng.uniform(0.0, 1.0, m)), t(default_ggx_lut(32)))
+    before = tap_finish.FETCH_KERNEL.launches
+    got = tap_finish.transmission_fetch_planes(*args)
+    assert tap_finish.FETCH_KERNEL.launches == before + 1
+    ref = tap_finish.transmission_fetch_planes_plain(*args)
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-6
+
+
 def test_bvh_occlusion_small_mesh():
     """Kernel 5 alone: every 9th ray dead; the hit set equals the plain
     walk's over the packet table."""

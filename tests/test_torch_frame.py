@@ -154,32 +154,26 @@ def test_sparse_block_helpers_match_reference():
 
 
 def test_unported_branches_refuse():
-    """Branches outside the port raise NotImplementedError (no silent
-    detour): the quality flags, a width that is not a multiple of 128 and
-    the dense transmission shade on the kernel branch; alpha clip and
-    ray-traced shadows on the visibility-buffer branch. (The block-sparse
-    opaque shade, the 256-tile floor's dense paths and kernel-branch alpha
-    clip render since they were ported:
-    tests/test_torch_stress_frame.py::test_former_refusals_render; so does
+    """The branches outside the port raise NotImplementedError (no silent
+    detour): alpha clip on the visibility-buffer branch, the G-buffer
+    kernel with tiles other than 8x128, and pair-stream compaction. (The
+    quality flags, every width, the dense transmission shade, ray-traced
+    shadows on every transmission path and on the visibility-buffer
+    branch, and textured transmissive roughness render since they were
+    ported: tests/test_torch_variants_*.py; so do the block-sparse opaque
+    shade, the 256-tile floor's dense paths and kernel-branch alpha clip:
+    tests/test_torch_stress_frame.py::test_former_refusals_render, and
     ``debug_clusters``: tests/test_torch_cli.py.)"""
     builder = build_dragon_scene(stacks=8, sectors=16)
     scene, dl, flags = builder.finish_bundle(device="cpu")
     rig = _rig(*CAM)
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     vis = dataclasses.replace(CFG, use_pallas_raster=False)
-    for bad in (dataclasses.replace(CFG, half_res_refraction=True),
-                dataclasses.replace(CFG, sparse_raster_tile_floor=256,
-                                    transmission_block_cap_frac=None),
-                dataclasses.replace(CFG, width=120)):
+    for bad, fl, why in (
+            (vis, flags._replace(has_alpha_clip=True), "item 6a"),
+            (dataclasses.replace(CFG, tile_w=32), flags, "8x128"),
+            (dataclasses.replace(CFG, pallas_pair_cap_frac=0.5), flags, "left out")):
         params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,
                                    rig.sun_dir(), device="cpu")
-        with pytest.raises(NotImplementedError):
-            render_frame(scene, dl, params, lights, bad, flags)
-    params = make_frame_params(vis, rig.camera.view_matrix(), rig.camera.position,
-                               rig.sun_dir(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        render_frame(scene, dl, params, lights, vis, flags._replace(has_alpha_clip=True))
-    with pytest.raises(NotImplementedError):
-        render_frame(scene, dl, params, lights,
-                     dataclasses.replace(vis, ray_traced_shadows=True), flags,
-                     bvh=builder.build_rt_bvh(device="cpu"))
+        with pytest.raises(NotImplementedError, match=why):
+            render_frame(scene, dl, params, lights, bad, fl)

@@ -305,21 +305,29 @@ def test_block_sparse_opaque_shade_gathers_shadow_factors():
 
 
 def test_stress_refusals():
-    """What stays out of this slice raises NotImplementedError on the
-    stress scene: alpha clip on the visibility-buffer branch, and
-    ray-traced shadows with alpha clip."""
+    """What stays out of the port raises NotImplementedError on the
+    stress scene: alpha clip on the visibility-buffer branch (ROADMAP
+    queue 1, item 6a). Ray-traced shadows with alpha clip render (the
+    compacted worklist's shadow rays): finite, in [0, 1], and in HDR
+    nowhere brighter than the frame without them and darker somewhere."""
     builder = build_stress_scene(grid=2)
     scene, dl, flags = builder.finish_bundle(device="cpu")
     rig = _rig(*CAM)
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     pal = dataclasses.replace(CFGS["converged"], pallas_interpret=False)
-    for cfg, kw in ((dataclasses.replace(pal, use_pallas_raster=False), {}),
-                    (dataclasses.replace(pal, ray_traced_shadows=True),
-                     {"bvh": builder.build_rt_bvh(device="cpu")})):
-        params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
-                                   rig.sun_dir(), device="cpu")
-        with pytest.raises(NotImplementedError):
-            render_frame(scene, dl, params, lights, cfg, flags, **kw)
+    cfg = dataclasses.replace(pal, use_pallas_raster=False)
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6a"):
+        render_frame(scene, dl, params, lights, cfg, flags)
+    rt = dataclasses.replace(pal, ray_traced_shadows=True, alpha_clip_rounds=2)
+    params = make_frame_params(rt, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device="cpu")
+    _, lit = render_frame(scene, dl, params, lights, rt, flags, return_hdr=True)
+    img, hdr = render_frame(scene, dl, params, lights, rt, flags, return_hdr=True,
+                            bvh=builder.build_rt_bvh(device="cpu"))
+    assert torch.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0
+    assert (hdr <= lit).all() and (hdr < lit).any()
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,14 @@ written by ``utils/png.py``.
     python -m transmission_renderer_tpu_torch.cli --cpu --procedural test --width 128 --height 72
 
 It runs on the card unless ``--cpu`` is given, and without a card it
-exits non-zero rather than carry on on the CPU. A mode the port does not
-have yet (``--devices`` > 1, ``--debug-checks``, the quality flags
-``--half-res-refraction`` / ``--quad-taps`` / ``--bf16-lights``, a JPEG
-image in a glTF, a frame branch ``render_frame`` refuses) prints the
-NotImplementedError message, which names its ROADMAP item, and exits
-with code 2, as the reference's CLI does for the combinations it
-rejects.
+exits non-zero rather than carry on on the CPU. The quality flags
+``--half-res-refraction``, ``--quad-taps`` and ``--bf16-lights`` render
+as the reference's do (through the tensor shade, where its gate sends
+them). A mode the port does not have yet (``--devices`` > 1,
+``--debug-checks``, a JPEG image in a glTF, a frame branch
+``render_frame`` refuses) prints the NotImplementedError message, which
+says why, and exits with code 2, as the reference's CLI does for the
+combinations it rejects.
 """
 
 from __future__ import annotations
@@ -97,14 +98,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Headless interactive loop: read WASD/QE (move), IJKL (look), "
                    "u/o/p/; (sun), <enter> renders a frame, 'x' quits")
     p.add_argument("--half-res-refraction", action="store_true",
-                   help="Half-res framebuffer fetch in the transmission pass (not ported)")
+                   help="Half-res framebuffer fetch in the transmission pass (quality flag)")
     p.add_argument("--quad-taps", action="store_true",
-                   help="Share one material-texture tap per 2x2 pixel quad (not ported)")
+                   help="Share one material-texture tap per 2x2 pixel quad (quality flag)")
     p.add_argument("--nol-shadow-gate", action="store_true",
                    help="skip shadow rays where N.L <= 0 (near-lossless, max delta "
                    "~1e-3; normal-map-free scenes only)")
     p.add_argument("--bf16-lights", action="store_true",
-                   help="Evaluate the per-light BRDF/BTDF cores in bfloat16 (not ported)")
+                   help="Evaluate the per-light BRDF/BTDF cores in bfloat16 (quality flag)")
     p.add_argument("--half-res-shadows", action="store_true",
                    help="Trace --ray-tracing shadow rays on a half-res grid and upsample "
                    "the visibility factors")

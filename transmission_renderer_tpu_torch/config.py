@@ -5,9 +5,9 @@ Counterpart of ``transmission_renderer_tpu/config.py``: the same
 same ``BUCKET_*`` constants, kept as the port's own copy so that the port
 imports nothing of the JAX package. The comments are shortened; the
 reference's file explains each knob at length. Fields that steer a
-branch the port does not run yet are kept so that one configuration
-means the same in both packages; ``render/frame.py::_check_branch``
-refuses them by name.
+branch the port does not run (``pallas_pair_cap_frac``) are kept so that
+one configuration means the same in both packages;
+``render/frame.py::_check_branch`` refuses them by name.
 """
 
 from __future__ import annotations

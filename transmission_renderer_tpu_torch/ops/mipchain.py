@@ -13,7 +13,11 @@ directly with the same clamp-to-edge footprint.
 a static contiguous ``level_set`` sums tent-weighted bilinear taps of the
 two levels bracketing each pixel's lod (which equals the reference's
 per-level ascending sum for small sets: the other levels' weights are
-exact zeros).
+exact zeros). With no level set (per-pixel roughness, every level built)
+the set is the whole pyramid: the tent weights of the two bracketing
+levels are then 1 - frac and frac, the reference's lerp
+``c0 + (c1 - c0) * frac`` (mipchain.py:677-683) up to one rounding of
+the combine (~2.4e-7 at texel values below 4).
 """
 
 from __future__ import annotations
@@ -121,9 +125,12 @@ def tent_weights(lod: torch.Tensor, lo: int, hi: int):
 
 
 def sample_pyramid_lod(pyr: MipPyramid, uv: torch.Tensor, lod: torch.Tensor,
-                       level_set: tuple) -> torch.Tensor:
-    """Trilinear clamp sample over a static contiguous level set
+                       level_set: tuple | None) -> torch.Tensor:
+    """Trilinear clamp sample over a static contiguous level set, or with
+    ``level_set`` None over the whole pyramid (every level built)
     -> [..., 3] (shader/src/lib.rs:135-138 framebuffer_sampler)."""
+    if level_set is None:
+        level_set = range(pyr.num_levels)
     lo, hi = min(level_set), max(level_set)
     if tuple(level_set) != tuple(range(lo, hi + 1)):
         raise ValueError("level_set must be contiguous")

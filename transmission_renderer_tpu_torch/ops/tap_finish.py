@@ -8,8 +8,9 @@ is the whole sampler, reading the atlas / pyramid / LUT itself:
 * ``sample_bundle_planes`` launches ``csrc/tap_finish.cu`` — the
   explicit-LOD trilinear material tap -> 4 * Lmax bundle-channel planes;
 * ``transmission_fetch_planes`` launches ``csrc/transmission_fetch.cu``
-  — the tent-weighted pyramid taps of the refraction plus the GGX LUT
-  tap -> (t_r, t_g, t_b, brdf_a, brdf_b).
+  — the tent-weighted pyramid taps of the refraction over a static level
+  set (with no level set, per-pixel roughness, the whole pyramid), plus
+  the GGX LUT tap -> (t_r, t_g, t_b, brdf_a, brdf_b).
 
 For CPU tensors both take their plain versions (``*_plain``), which are
 the port's sampler oracles in ops/texture.py and ops/mipchain.py.
@@ -140,7 +141,7 @@ FETCH_KERNEL = kernels.KernelHandle(
 
 def transmission_fetch_planes(
     pyramid: MipPyramid,
-    level_set: tuple,  # static contiguous level set
+    level_set: tuple | None,  # static contiguous level set; None: every level
     uv_x: torch.Tensor,  # [M] refraction exit point, screen uv
     uv_y: torch.Tensor,
     lod: torch.Tensor,  # [M] framebuffer lod
@@ -149,5 +150,7 @@ def transmission_fetch_planes(
     lut: torch.Tensor,  # [S, S, 2] GGX split-sum LUT
 ) -> tuple:
     """(transmitted r, g, b, brdf_a, brdf_b) [M] planes."""
+    if level_set is None:
+        level_set = range(pyramid.num_levels)
     return FETCH_KERNEL(uv_x.is_cuda, pyramid, tuple(level_set), uv_x, uv_y,
                         lod, nov, rough, lut)

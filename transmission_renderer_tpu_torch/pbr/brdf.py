@@ -11,10 +11,21 @@ ibl_volume_refraction. The visibility-buffer frame's shading
 Functions are elementwise over leading batch dimensions: vectors are
 [..., 3], scalars [...]. Shading dot products clamp below at float32
 epsilon and not above (glam-pbr lib.rs:92-99).
+
+``material_invariants``, ``basic_brdf`` and ``transmission_btdf`` compute in
+the dtype they are given (the light loop's ``bf16_light_math`` gives them
+bfloat16). In bfloat16 they round as the reference's compiled CPU frame
+does: every elementwise op rounds to bfloat16, a Python constant is
+rounded to bfloat16 first (JAX's weakly typed scalars), a dot product's
+products and sum stay float32 and round once (``jnp.sum`` accumulates
+bfloat16 in float32), and the last product of ``basic_brdf``'s and
+``transmission_btdf``'s results is taken in float32, unrounded (the light
+loop takes them to float32, and XLA drops that convert pair).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -51,13 +62,33 @@ def _sum3(v: torch.Tensor) -> torch.Tensor:
     return (v[..., 0] + v[..., 1]) + v[..., 2]
 
 
+def _sum_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum of a * b over the trailing axis of 3; in bfloat16 the products
+    and the sum stay float32 and round once."""
+    if a.dtype == torch.bfloat16:
+        return _sum3(a.float() * b.float()).to(torch.bfloat16)
+    return _sum3(a * b)
+
+
+@functools.cache
+def _bf16_rounded(x: float) -> float:
+    return float(torch.tensor(x, dtype=torch.bfloat16))
+
+
+def _const(x: float, like: torch.Tensor) -> float:
+    """A Python constant rounded to bfloat16 first where ``like`` is
+    bfloat16 (a bfloat16 tensor times a float is computed in float32 and
+    rounded once, as bfloat16 times bfloat16), else as is."""
+    return _bf16_rounded(x) if like.dtype == torch.bfloat16 else x
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Clamped shading dot product (glam-pbr lib.rs:92-99)."""
-    return torch.clamp(_sum3(a * b), min=F32_EPSILON)
+    return torch.clamp(_sum_products(a, b), min=F32_EPSILON)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
-    return v / torch.sqrt(_sum3(v * v))[..., None]
+    return v / torch.sqrt(_sum_products(v, v))[..., None]
 
 
 def light_direction_and_attenuation(fragment_position, light_position):
@@ -90,7 +121,7 @@ def d_ggx(noh: torch.Tensor, actual_roughness: torch.Tensor) -> torch.Tensor:
     alpha = 0, noh = 1 singularity."""
     a2 = actual_roughness * actual_roughness
     f = (noh * noh) * (a2 - 1.0) + 1.0
-    return torch.where(f * f > 0.0, a2 / (_PI * f * f), 0.0)
+    return torch.where(f * f > 0.0, a2 / (_const(_PI, f) * f * f), 0.0)
 
 
 def v_smith_ggx_correlated(nov, nol, actual_roughness) -> torch.Tensor:
@@ -143,7 +174,7 @@ def basic_brdf(normal, light, light_intensity, view, material: MaterialParams,
                inv: MaterialInvariants | None = None) -> BrdfResult:
     """Lambert-with-Fresnel diffuse + GGX specular (glam-pbr
     lib.rs:377-423); ``light`` and ``view`` are unit vectors away from
-    the surface."""
+    the surface. Each term's last product is taken in float32."""
     if inv is None:
         inv = material_invariants(material)
     halfway = _normalize(view + light)
@@ -155,20 +186,22 @@ def basic_brdf(normal, light, light_intensity, view, material: MaterialParams,
     radiance = light_intensity * nol[..., None]
     # (1 - max_element(F)) / pi * c_diff (glam-pbr lib.rs:356-360)
     fmax = torch.amax(fresnel, dim=-1, keepdim=True)
-    diffuse = radiance * ((1.0 - fmax) * _FRAC_1_PI * inv.c_diff)
+    f32 = torch.float32
+    diffuse = radiance.to(f32) * ((1.0 - fmax) * _const(_FRAC_1_PI, fmax) * inv.c_diff).to(f32)
     dv = d_ggx(noh, inv.actual_roughness) * v_smith_ggx_correlated(
         nov, nol, inv.actual_roughness)
-    specular = radiance * dv[..., None] * fresnel
+    specular = (radiance * dv[..., None]).to(f32) * fresnel.to(f32)
     return BrdfResult(diffuse=diffuse, specular=specular)
 
 
 def transmission_btdf(material: MaterialParams, normal, view, light,
                       inv: MaterialInvariants | None = None) -> torch.Tensor:
-    """Per-light rough transmission lobe (glam-pbr lib.rs:200-233)."""
+    """Per-light rough transmission lobe (glam-pbr lib.rs:200-233); the
+    last product is taken in float32."""
     if inv is None:
         inv = material_invariants(material)
     rough = apply_ior_to_roughness(inv.actual_roughness, material.index_of_refraction)
-    l_dot_n = _sum3((-light) * normal)[..., None]
+    l_dot_n = _sum_products(-light, normal)[..., None]
     light_mirrored = _normalize(light + 2.0 * normal * l_dot_n)
     halfway = _normalize(view + light_mirrored)
     noh = _dot(normal, halfway)
@@ -177,7 +210,8 @@ def transmission_btdf(material: MaterialParams, normal, view, light,
     nol_mirrored = _dot(normal, light_mirrored)
     dv = d_ggx(noh, rough) * v_smith_ggx_correlated(nov, nol_mirrored, rough)
     fresnel = fresnel_schlick(voh, inv.f0, inv.f90)
-    return (1.0 - fresnel) * dv[..., None] * material.diffuse_colour
+    f32 = torch.float32
+    return ((1.0 - fresnel) * dv[..., None]).to(f32) * material.diffuse_colour.to(f32)
 
 
 def refract(incident, normal, ior) -> torch.Tensor:

@@ -12,18 +12,18 @@ the reference:
 
 - the G-buffer kernel branch (the flagship on the card; frame.py:1073-1158):
   class-split binning (four draw classes with alpha clip), the G-buffer
-  raster (kernel 1), each alpha-clip class depth-peeled after its pass
-  (frame.py:1151-1158, 1439-1456), the dense or block-sparse opaque shade
-  (frame.py:1278-1322), and the fused sparse transmission path
-  (frame.py:1374-1416, 1486-1528) or, with alpha clip or a tile cap of
-  0, the sparse-tile or dense transmissive raster and the compacted
-  shade (frame.py:1417-1438, 1529-1573); ray-traced shadows
-  (frame.py:1007-1016, 1222-1277, 1492-1506) on the fused path. Pass
-  order: vertex transform + cull (+ BVH refit), setup + binning, payload,
-  opaque raster (kernel 1) and its clip peel, clustering, opaque shadow
-  rays (kernel 5), opaque shade (kernels 2 + 3), mip pyramid,
-  transmissive raster (kernel 1) and its clip peel, transmission shadow
-  rays (kernel 5), transmission shade (kernels 3 + 4), tonemap.
+  raster (kernel 1, partial last tiles at any width), each alpha-clip
+  class depth-peeled after its pass (frame.py:1151-1158, 1439-1456), the
+  dense or block-sparse opaque shade (frame.py:1278-1322), and the fused
+  sparse transmission path (frame.py:1374-1416, 1486-1528) or, with alpha
+  clip, half-res refraction, no tile cap or a width that is not a
+  multiple of 128, the sparse-tile or dense transmissive raster and the
+  compacted or dense shade (frame.py:1417-1438, 1529-1600). Pass order:
+  vertex transform + cull (+ BVH refit), setup + binning, payload, opaque
+  raster (kernel 1) and its clip peel, clustering, opaque shadow rays
+  (kernel 5), opaque shade (kernels 2 + 3), mip pyramid, transmissive
+  raster (kernel 1) and its clip peel, transmission shadow rays (kernel
+  5), transmission shade (kernels 3 + 4), tonemap.
 - the visibility-buffer branch (``use_pallas_raster=False``, and the
   default on the CPU or with tiles other than 8x128; frame.py:1055-1064,
   1159-1166, 1457-1463, 1470-1600): per pass a setup, materialised bins
@@ -33,8 +33,19 @@ the reference:
   shade over a compacted block worklist (or dense), through the tensor
   shading path unless ``pallas_shade`` asks for the kernels.
 
-Every other branch raises NotImplementedError naming its ROADMAP item:
-the port never takes a silent detour.
+On both branches: ray-traced shadows (frame.py:1007-1016, 1222-1277,
+1492-1591) with each transmission path's ray order (the fused path's
+tiles, the compacted worklist's own order, the dense shade's 8x16
+groups); per-pixel (textured) transmissive roughness over the whole
+pyramid (no level set); and the quality flags (``half_res_refraction``,
+``quad_material_taps``, ``bf16_light_math``), which the reference's gate
+sends to the tensor shade. A pass shades through the kernels only at
+widths that are multiples of 128 (single-row 128-px blocks).
+
+Three branches raise NotImplementedError, saying why: alpha clip on the
+visibility-buffer branch (ROADMAP queue 1, item 6a), the G-buffer kernel
+with tiles other than its fixed 8x128, and pair-stream compaction (left
+out of the port). The port never takes a silent detour.
 """
 
 from __future__ import annotations
@@ -424,6 +435,12 @@ def _tile_cap(frac: float | None, n_tiles: int, floor: int) -> int:
     return 0 if cap >= n_tiles else cap
 
 
+def _pixel_grid(h: int, w: int, device) -> tuple:
+    """[H, W] int32 (x, y) of every pixel."""
+    return (torch.arange(w, dtype=torch.int32, device=device)[None, :].expand(h, w),
+            torch.arange(h, dtype=torch.int32, device=device)[:, None].expand(h, w))
+
+
 def _up2(a: torch.Tensor, axis: int) -> torch.Tensor:
     """2x upsample of a half-res sample grid whose samples sit at
     full-res pixels 2i: even outputs copy their sample, odd outputs
@@ -434,49 +451,34 @@ def _up2(a: torch.Tensor, axis: int) -> torch.Tensor:
     return pair.reshape(a.shape[:axis] + (2 * n,) + a.shape[axis + 1 :])
 
 
-def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool,
-                  use_rt: bool) -> None:
-    """Refuse every branch of the reference frame this port lacks."""
-    def refuse(what, item):
-        raise NotImplementedError(f"{what}: ROADMAP queue 1, {item}")
+def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool) -> None:
+    """Refuse the branches of the reference frame this port lacks."""
+    def refuse(what, why):
+        raise NotImplementedError(f"{what}: {why}")
 
-    if config.half_res_refraction or config.quad_material_taps or config.bf16_light_math:
-        refuse("the quality flags", "item 3 (the quality flags)")
     if not use_pallas:
         if flags.has_alpha_clip:
             refuse("alpha clip in the visibility raster (alpha_coverage_fn)",
-                   "item 6a (visibility-buffer alpha clip)")
-        if use_rt:
-            refuse("ray-traced shadows on the visibility-buffer branch",
-                   "item 6b (visibility-buffer ray tracing)")
+                   "ROADMAP queue 1, item 6a (visibility-buffer alpha clip)")
         return
-    if use_rt and flags.has_alpha_clip:
-        refuse("ray-traced shadows with alpha clip", "item 5 (the rest of ray tracing)")
     if (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
-        refuse("the G-buffer raster with tiles other than 8x128",
-               "item 2 (the kernel branch's other widths)")
-    if config.width % BLOCK:
-        refuse("a width that is not a multiple of 128 on the G-buffer kernel "
-               "branch", "item 2 (the kernel branch's other widths)")
+        refuse(f"the G-buffer kernel with {config.tile_h}x{config.tile_w} tiles",
+               "its tile is 8x128, as the reference kernel's")
     if config.pallas_pair_cap_frac is not None:
-        refuse("pair-stream compaction (measured negative in the reference)",
-               "leave out of the port")
-    if flags.has_transmission and not _fused_transmission(config, flags):
-        if config.transmission_block_cap_frac is None:
-            refuse("the dense transmission shade on the G-buffer kernel branch",
-                   "item 2 (the kernel branch's other transmission paths)")
-        if use_rt:
-            refuse("ray-traced shadows with the non-fused transmission raster",
-                   "item 2 (the kernel branch's other transmission paths)")
+        refuse("pair-stream compaction", "left out of the port (measured negative "
+               "in the reference)")
 
 
 def _fused_transmission(config: RenderConfig, flags: SceneFlags) -> bool:
     """Whether the kernel branch's transmissive raster feeds the shade
-    straight from its tiles (frame.py:1368-1373): a sparse tile cap, and
-    no alpha clip (whose peel needs the dense G-buffer)."""
+    straight from its tiles (frame.py:1368-1373): a sparse tile cap, no
+    alpha clip (whose peel needs the dense G-buffer), no half-res
+    refraction (which needs the dense shade's 2-D grid), and a width that
+    is a multiple of 128 (each tile row one 128-px shading block)."""
     cap_rt = _tile_cap(config.transmission_tile_cap_frac, config.tiles_x * config.tiles_y,
                        config.sparse_raster_tile_floor)
-    return bool(cap_rt) and not flags.has_alpha_clip
+    return (bool(cap_rt) and not flags.has_alpha_clip and not config.half_res_refraction
+            and config.width % TILE_W == 0)
 
 
 def _gather_gbuffer(wk: BlockWork, g: GBuffer) -> GBuffer:
@@ -726,7 +728,7 @@ def render_frame(
     if use_pallas is None:
         use_pallas = dev.type != "cpu" and (config.tile_w, config.tile_h) == (TILE_W, TILE_H)
     use_rt = config.ray_traced_shadows and bvh is not None
-    _check_branch(config, flags, use_pallas, use_rt)
+    _check_branch(config, flags, use_pallas)
     if ggx_lut is None:
         ggx_lut = _default_lut(config.ggx_lut_size, dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -827,6 +829,9 @@ def render_frame(
         tex_slots=flags.tex_slots,
         mat_matrix=build_material_matrix(scene, flags.tex_slots, flags.slot_bundles),
         debug_clusters=config.debug_clusters,
+        quad_taps=config.quad_material_taps,
+        bf16_lights=config.bf16_light_math,
+        half_res_refraction=config.half_res_refraction,
         pallas_shade=use_pallas if config.pallas_shade is None else config.pallas_shade,
     )
 
@@ -847,12 +852,10 @@ def render_frame(
                 sun_f = _up2(_up2(sun_h, 0), 1)
                 light_f = _up2(_up2(light_h, 0), 1)
             else:
-                px_d = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
-                py_d = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
                 sun_f, light_f = shadow_factors(
                     bvh, dl.tri_vtx, world_pos, g_o, params.sun_dir, lights,
                     # pairs outside a pixel's cluster list are never read
-                    light_active=cluster_light_mask(ctx, g_o.depth, px_d, py_d),
+                    light_active=cluster_light_mask(ctx, g_o.depth, *_pixel_grid(h, w, dev)),
                     # N.L gating needs the unperturbed normal (no normal map)
                     nol_gate=config.nol_shadow_gate and not flags.tex_slots[2],
                     packet_swizzle="2d",
@@ -896,6 +899,18 @@ def render_frame(
                 scene, flags.tex_slots_transmission, flags.slot_bundles),
         )
 
+        def transmission_shadows(g, px, py, swizzle):
+            """ctx_t with the transmission pass's shadow factors over g's
+            pixels, traced in the ``swizzle`` order (ctx_t without RT)."""
+            if not use_rt:
+                return ctx_t
+            with pass_scope("shadow_rays_transmission"):
+                sun_f_t, light_f_t = shadow_factors(
+                    bvh, dl.tri_vtx, world_pos, g, params.sun_dir, lights,
+                    light_active=cluster_light_mask(ctx_t, g.depth, px, py),
+                    packet_swizzle=swizzle)
+            return ctx_t._replace(sun_shadow_factor=sun_f_t, light_shadow_factors=light_f_t)
+
     fused = use_pallas and flags.has_transmission and _fused_transmission(config, flags)
     if use_pallas and flags.has_transmission:
         cap_rt = _tile_cap(config.transmission_tile_cap_frac, n_tiles,
@@ -918,8 +933,9 @@ def render_frame(
             n: a.reshape((cap_rt * TILE_H * TILE_W,) + a.shape[3:])
             for n, a in sub_t.items()
         })
-        # every 8-px tile row is one flat 128-px block (w % 128 == 0); the
-        # pad block nb stands in for empty slots and rows past the bottom
+        # every 8-px tile row is one flat 128-px block (the fused path
+        # needs w % 128 == 0); the pad block nb stands in for empty slots
+        # and rows past the bottom
         bpr = w // BLOCK
         r8 = torch.arange(TILE_H, dtype=torch.int32, device=dev)
         prow = (ids_t // tiles_x)[:, None] * TILE_H + r8[None, :]
@@ -931,17 +947,8 @@ def render_frame(
             transmission_blocks = wk_t.count
             cap_t = wk_t.cap_b
             px_t, py_t = pixel_coords(wk_t)
-            ctx_tf = ctx_t
-            if use_rt:
-                with pass_scope("shadow_rays_transmission"):
-                    # every 1024 worklist lanes are one 8x128 raster tile
-                    sun_f_t, light_f_t = shadow_factors(
-                        bvh, dl.tri_vtx, world_pos, g_tf, params.sun_dir, lights,
-                        light_active=cluster_light_mask(ctx_t, g_tf.depth, px_t, py_t),
-                        packet_swizzle="tiles",
-                    )
-                ctx_tf = ctx_t._replace(sun_shadow_factor=sun_f_t,
-                                        light_shadow_factors=light_f_t)
+            # every 1024 worklist lanes are one 8x128 raster tile
+            ctx_tf = transmission_shadows(g_tf, px_t, py_t, "tiles")
             hdr_t = shade_transmission_flat(scene, g_tf, ctx_tf, pyramid, level_set,
                                             px_t, py_t, *_block_coords(wk_t, w))
             hdr_planes = _merge_blocks(wk_t, g_tf.valid, hdr_t, hdr_planes)
@@ -984,8 +991,9 @@ def render_frame(
                                            world_nrm, uvs, config, "raster_transmission",
                                            init_depth=g_o.depth)
         # a fraction of the blocks with a 256-block floor: at small frames
-        # one 128-px block spans several rows, so coverage quantises up
-        if config.transmission_block_cap_frac is not None:
+        # one 128-px block spans several rows, so coverage quantises up;
+        # half-res refraction needs the dense shade's 2-D grid
+        if config.transmission_block_cap_frac is not None and not config.half_res_refraction:
             cap_t = min(max(int(np.ceil(nb * config.transmission_block_cap_frac)), 256), nb)
         with pass_scope("shade_transmission"):
             if cap_t:
@@ -993,11 +1001,15 @@ def render_frame(
                 transmission_blocks = wk_t.count
                 g_tf = _gather_gbuffer(wk_t, g_t)
                 px_t, py_t = pixel_coords(wk_t)
-                hdr_t = shade_transmission_flat(scene, g_tf, ctx_t, pyramid, level_set,
+                # the worklist's pixels only, in its own order (frame.py:1529-1551)
+                ctx_tf = transmission_shadows(g_tf, px_t, py_t, None)
+                hdr_t = shade_transmission_flat(scene, g_tf, ctx_tf, pyramid, level_set,
                                                 px_t, py_t, *_block_coords(wk_t, w))
                 hdr_planes = _merge_blocks(wk_t, g_tf.valid, hdr_t, hdr_planes)
             else:
-                hdr_t = shade_transmission(scene, g_t, ctx_t, pyramid, level_set)
+                # every pixel, in 8x16 groups (frame.py:1574-1590)
+                ctx_td = transmission_shadows(g_t, *_pixel_grid(h, w, dev), "2d")
+                hdr_t = shade_transmission(scene, g_t, ctx_td, pyramid, level_set)
                 hdr_planes = tuple(torch.where(g_t.valid, hdr_t[..., c], hp)
                                    for c, hp in enumerate(hdr_planes))
 

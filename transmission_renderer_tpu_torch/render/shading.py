@@ -12,7 +12,16 @@ shade_opaque, shade_transmission_flat and shade_transmission:
 - the tensor path (the reference's XLA formulation, shading.py:894-919,
   1067-1118): _evaluate_pixel_material with _normal_mapped,
   _light_matrix and _evaluate_lights_common over pbr/brdf.py, and the
-  cluster false colour of ``debug_clusters`` (shading.py:909-914).
+  cluster false colour of ``debug_clusters`` (shading.py:909-914), with
+  the quality flags: ``quad_taps`` (one material tap per 2x2 quad, dense
+  opaque shade, shading.py:333-360), ``bf16_lights`` (the BRDF/BTDF cores
+  in bfloat16, shading.py:606-650) and ``half_res_refraction`` (the dense
+  transmission shade's half-res framebuffer fetch, shading.py:1140-1147).
+
+With per-pixel (textured) transmissive roughness there is no static
+pyramid level set: both paths then fetch the whole pyramid (kernel 4's
+launch over every level on the kernel path, sample_pyramid_lod over every
+level on the tensor path).
 
 A pass takes the kernel path where the reference does
 (``_kernel_path_taps``): with ``ctx.pallas_shade`` (frame.py:1215-1217),
@@ -28,8 +37,10 @@ does (a multiply by the float32 reciprocal), on both paths.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from transmission_renderer_tpu_torch.ops.mipchain import MipPyramid, sample_pyramid_lod
@@ -90,8 +101,11 @@ class ShadeContext(NamedTuple):
     tex_slots: tuple = (True,) * 9
     mat_matrix: "MaterialMatrix | None" = None
     debug_clusters: bool = False
+    # the quality flags (RenderConfig.quad_material_taps, bf16_light_math,
+    # half_res_refraction)
     quad_taps: bool = False
     bf16_lights: bool = False
+    half_res_refraction: bool = False
     # ray-traced shadows (render/raytrace.py::shadow_factors): 1 lit, 0
     # shadowed; the sun's [...] and each light's [..., L]
     sun_shadow_factor: torch.Tensor | None = None
@@ -279,13 +293,6 @@ def _kernel_path_taps(scene: Scene, g: GBuffer, ctx: ShadeContext, block_py):
         return bundle_tap_samples(scene, g, ctx.tex_slots, ctx.mat_matrix)
 
 
-def _require_tensor_path(ctx: ShadeContext) -> None:
-    for flag, item in ((ctx.quad_taps, "--quad-taps"), (ctx.bf16_lights, "--bf16-lights")):
-        if flag:
-            raise NotImplementedError(f"{item} on the tensor shading path: ROADMAP "
-                                      "queue 1, item 3 (the quality flags)")
-
-
 # the cluster false colours (shader/src/lib.rs:647-664)
 _DEBUG_COLOURS = (
     (0.0, 0.0, 0.0), (0.0, 0.0, 0.1647), (0.0, 0.0, 0.3647), (0.0, 0.0, 0.6647),
@@ -321,20 +328,43 @@ class PixelMaterial(NamedTuple):
     normal: torch.Tensor  # shading normal after normal mapping
 
 
+def _quad_representative(valid: torch.Tensor, h: int, w: int):
+    """rep(x): each 2x2 quad's first valid pixel (argmax of its valid
+    flags, the quad's first pixel when none is) of a flat row-major
+    [h * w, ...] array -> [h/2 * w/2, ...] (shading.py:333-351)."""
+    vq = valid.reshape(h // 2, 2, w // 2, 2).transpose(1, 2).reshape(h // 2, w // 2, 4)
+    choice = torch.argmax(vq.to(torch.int32), dim=-1)
+
+    def rep(x):
+        rest = x.shape[1:]
+        x4 = x.reshape(h // 2, 2, w // 2, 2, *rest).transpose(1, 2)
+        x4 = x4.reshape(h // 2, w // 2, 4, *rest)
+        idx = choice.reshape(h // 2, w // 2, 1, *(1,) * len(rest)).expand(
+            h // 2, w // 2, 1, *rest)
+        return torch.gather(x4, 2, idx)[:, :, 0].reshape(-1, *rest)
+
+    return rep
+
+
 def _evaluate_pixel_material(scene: Scene, g: GBuffer, tex_slots: tuple = (True,) * 9,
-                             mat_matrix: MaterialMatrix | None = None) -> PixelMaterial:
+                             mat_matrix: MaterialMatrix | None = None,
+                             quad_shape: tuple | None = None) -> PixelMaterial:
     """Per-pixel material on a flat [M] G-buffer: the factor and texture
     fetches and the normal map of get_material_params / get_emission /
     calculate_normal (shader/src/lighting.rs:222-313) and the transmission
     and thickness taps of fragment_transmission (shader/src/lib.rs:120-124).
     ``tex_slots`` skips the taps of slots no material uses; slots sharing
-    a meta block (one bundle image) share one tap."""
+    a meta block (one bundle image) share one tap. ``quad_shape`` (h, w),
+    for a dense row-major frame: one tap per 2x2 quad at its
+    representative pixel's uv, lod and meta row, shared by its 4 pixels
+    (``quad_material_taps``)."""
     mm = mat_matrix if mat_matrix is not None else build_material_matrix(scene, tex_slots)
     (use_diffuse, use_mr, use_normal, use_emissive, _use_occlusion,
      use_transmission, use_thickness, use_specular, use_specular_colour) = tex_slots
     mrow = mm.table[g.material_id.long()]
     classes = atlas_classes(scene.atlas_meta)
     taps: dict = {}
+    rep = None if quad_shape is None else _quad_representative(g.valid, *quad_shape)
 
     def tex4(slot_idx):
         tid = mrow[..., 21 + slot_idx].to(torch.int32)
@@ -342,8 +372,16 @@ def _evaluate_pixel_material(scene: Scene, g: GBuffer, tex_slots: tuple = (True,
         if col not in taps:
             rows = _meta_rows_from(mrow, col)
             lod = _mip_lod(g.duv_dx, g.duv_dy, rows[..., 2], rows[..., 3])
-            taps[col] = sample_bundle_rows(scene.atlas_texels, rows, g.uv, lod,
-                                           WRAP_REPEAT, classes)
+            if quad_shape is None:
+                taps[col] = sample_bundle_rows(scene.atlas_texels, rows, g.uv, lod,
+                                               WRAP_REPEAT, classes)
+            else:
+                h, w = quad_shape
+                s_q = sample_bundle_rows(scene.atlas_texels, rep(rows), rep(g.uv), rep(lod),
+                                         WRAP_REPEAT, classes)  # [M/4, L, 4]
+                n_layers = s_q.shape[1]
+                taps[col] = s_q.reshape(h // 2, 1, w // 2, 1, n_layers, 4).expand(
+                    h // 2, 2, w // 2, 2, n_layers, 4).reshape(-1, n_layers, 4)
         bundle = taps[col]
         if max(classes) == 1:
             return tid, bundle[..., 0, :]
@@ -422,19 +460,25 @@ def _evaluate_lights_common(ctx: ShadeContext, material: MaterialParams, view, p
     / evaluate_lights_transmission, shader/src/lighting.rs:13-95,
     145-220) on flat [M] pixels -> (BrdfResult, transmission [M, 3] or
     None, cluster ids, light counts). Slot s reads the cluster's s-th
-    light; slots past the count add exact zeros."""
+    light; slots past the count add exact zeros. With ``ctx.bf16_lights``
+    the BRDF/BTDF cores run in bfloat16 on bfloat16 casts of the
+    material, normal, view, light direction and radiance; the per-light
+    radiance and the accumulation stay float32 (shading.py:606-650)."""
     cluster, rows, counts, max_slots = _cluster_rows(ctx, depth, px, py)
     sun_factor = (ctx.sun_shadow_factor if ctx.sun_shadow_factor is not None
                   else torch.ones_like(depth))
     if not with_transmission and ctx.sun_shadow_factor is not None:
         sun_factor = torch.clamp(sun_factor, min=0.1)  # lighting.rs:166
-    inv = material_invariants(material)
+    cdt = torch.bfloat16 if ctx.bf16_lights else torch.float32
+    material_c = MaterialParams(*(f.to(cdt) for f in material))
+    normal_c, view_c = normal.to(cdt), view.to(cdt)
+    inv = material_invariants(material_c)
     sun_intensity = ctx.sun_intensity * sun_factor[..., None]
-    sun_dir = ctx.sun_dir.expand(position.shape)
-    result = basic_brdf(normal, sun_dir, sun_intensity, view, material, inv=inv)
+    sun_dir = ctx.sun_dir.expand(position.shape).to(cdt)
+    result = basic_brdf(normal_c, sun_dir, sun_intensity.to(cdt), view_c, material_c, inv=inv)
     transmission = None
     if with_transmission:
-        transmission = sun_intensity * transmission_btdf(material, normal, view, sun_dir,
+        transmission = sun_intensity * transmission_btdf(material_c, normal_c, view_c, sun_dir,
                                                          inv=inv)
     lmat = _light_matrix(ctx.lights)
     for slot in range(max_slots):
@@ -451,10 +495,12 @@ def _evaluate_lights_common(ctx: ShadeContext, material: MaterialParams, view, p
             spot = spotlight_factor(direction, lrow[..., 6:9], lrow[..., 9], eps)
             factor = factor * torch.where(lrow[..., 11] > 0.5, spot, 1.0)
         radiance = lrow[..., 3:6] * factor[..., None] * attenuation[..., None]
-        result = result + basic_brdf(normal, direction, radiance, view, material, inv=inv)
+        direction_c = direction.to(cdt)
+        result = result + basic_brdf(normal_c, direction_c, radiance.to(cdt), view_c,
+                                     material_c, inv=inv)
         if with_transmission:
             transmission = transmission + radiance * transmission_btdf(
-                material, normal, view, direction, inv=inv)
+                material_c, normal_c, view_c, direction_c, inv=inv)
     return result, transmission, cluster, counts
 
 
@@ -486,19 +532,20 @@ def _view_dir(ctx: ShadeContext, g: GBuffer) -> torch.Tensor:
 
 def shade_opaque_flat(scene: Scene, g: GBuffer, ctx: ShadeContext, px, py,
                       block_py: torch.Tensor | None = None,
-                      block_px0: torch.Tensor | None = None) -> tuple:
+                      block_px0: torch.Tensor | None = None,
+                      quad_shape: tuple | None = None) -> tuple:
     """The opaque PBR fragment shader (shader/src/lib.rs:164-249) over a
     flat [M] worklist -> (r, g, b) [M] planes, 0 on invalid pixels. The
     kernel path needs ``block_py`` / ``block_px0`` (the framebuffer row
-    and first x of each single-row 128-px block)."""
-    samples = _kernel_path_taps(scene, g, ctx, block_py)
+    and first x of each single-row 128-px block); ``quad_shape`` (a
+    dense frame's (h, w)) shares one material tap per 2x2 quad."""
+    samples = None if quad_shape is not None else _kernel_path_taps(scene, g, ctx, block_py)
     if samples is not None:
         return shade_opaque_pallas_planes(
             scene, g, ctx, block_py, block_px0, samples, ctx.tex_slots
         )
-    _require_tensor_path(ctx)
     view = _view_dir(ctx, g)
-    pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix)
+    pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix, quad_shape)
     result, _, cluster, counts = _evaluate_lights_common(
         ctx, pm.params, view, g.position, pm.normal, g.depth, px, py, False)
     out = result.diffuse + result.specular + pm.emission
@@ -518,14 +565,16 @@ def flatten_gbuffer(g: GBuffer) -> GBuffer:
 
 
 def shade_opaque(scene: Scene, g: GBuffer, ctx: ShadeContext) -> tuple:
-    """Dense [H, W] opaque shade -> (r, g, b) [H, W] planes."""
+    """Dense [H, W] opaque shade -> (r, g, b) [H, W] planes; the only
+    pass that shares quad taps (``ctx.quad_taps``, even frames)."""
     h, w = g.depth.shape
     dev = g.depth.device
     px, py = _dense_coords(h, w, dev)
     block_py, block_px0 = block_origins(
         torch.arange((h * w) // 128, dtype=torch.int32, device=dev), w)
+    quad = (h, w) if ctx.quad_taps and h % 2 == 0 and w % 2 == 0 else None
     planes = shade_opaque_flat(scene, flatten_gbuffer(g), _flatten_ctx_factors(ctx), px, py,
-                               block_py, block_px0)
+                               block_py, block_px0, quad)
     return tuple(p.reshape(h, w) for p in planes)
 
 
@@ -565,22 +614,19 @@ def _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py, block
 
 
 def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
-                            pyramid: MipPyramid, level_set: tuple, px, py,
+                            pyramid: MipPyramid, level_set: tuple | None, px, py,
                             block_py: torch.Tensor | None = None,
-                            block_px0: torch.Tensor | None = None) -> torch.Tensor:
+                            block_px0: torch.Tensor | None = None,
+                            fb_sampler=None) -> torch.Tensor:
     """The transmission fragment shader (shader/src/lib.rs:37-162) over a
     flat [M] worklist -> [M, 3] HDR (0 on invalid pixels); the opaque
-    pyramid is fetched over its static ``level_set``."""
-    if level_set is None:
-        raise NotImplementedError(
-            "per-pixel (textured) transmissive roughness needs the full "
-            "pyramid's dynamic-level fetch: ROADMAP queue 1, other frame variants"
-        )
+    pyramid is fetched over its static ``level_set``, or over every level
+    when it is None (per-pixel roughness). ``fb_sampler`` (uv [M, 2], lod
+    [M]) -> [M, 3] replaces the pyramid fetch on the tensor path."""
     samples = _kernel_path_taps(scene, g, ctx, block_py)
     if samples is not None:
         return _transmission_kernel_path(scene, g, ctx, pyramid, level_set, block_py,
                                          block_px0, samples)
-    _require_tensor_path(ctx)
     view = _view_dir(ctx, g)
     pm = _evaluate_pixel_material(scene, g, ctx.tex_slots, ctx.mat_matrix)
     result, transmission, _, _ = _evaluate_lights_common(
@@ -588,7 +634,7 @@ def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
     transmission = transmission + ibl_volume_refraction(
         pm.params, ctx.framebuffer_size[0], pm.normal, view, ctx.proj_view, g.position,
         pm.thickness, g.model_scale, pm.attenuation_distance, pm.attenuation_colour,
-        lambda uv, lod: sample_pyramid_lod(pyramid, uv, lod, level_set),
+        fb_sampler or (lambda uv, lod: sample_pyramid_lod(pyramid, uv, lod, level_set)),
         lambda nov, rough: sample_lut_2ch(ctx.ggx_lut, nov, rough),
     )
     tf = pm.transmission_factor[..., None]
@@ -597,14 +643,69 @@ def shade_transmission_flat(scene: Scene, g: GBuffer, ctx: ShadeContext,
     return torch.where(g.valid[..., None], out, 0.0)
 
 
+@functools.lru_cache(maxsize=8)
+def _linear_resize_taps(n_in: int, n_out: int) -> tuple:
+    """The two taps per output sample of ``jax.image.resize(..., "linear")``
+    along one axis upsampled from n_in to n_out (half-pixel centres, the
+    triangle kernel, weights renormalised where a tap falls outside),
+    computed in float32 as jax's compiled weight matrix is (the sample
+    position's multiply-subtract contracted to one rounding) -> (index 0,
+    index 1, weight 0, weight 1), each [n_out]."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    centre = (np.arange(n_out, dtype=f32) + f32(0.5)).astype(np.float64)
+    sample = (centre * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+    wts = np.maximum(f32(0.0), f32(1.0) - x)
+    total = wts.sum(axis=0, keepdims=True, dtype=f32)
+    wts = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                   wts / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    wts = np.where(inside[None, :], wts, f32(0.0)).astype(f32)
+    # at most two inputs lie within one texel of a sample when upsampling
+    i0 = np.clip(np.floor(sample), 0, n_in - 1).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    cols = np.arange(n_out)
+    w0 = wts[i0, cols]
+    w1 = np.where(i1 != i0, wts[i1, cols], f32(0.0))
+    assert np.count_nonzero(wts) == np.count_nonzero(w0) + np.count_nonzero(w1)
+    return i0, i1, w0, w1
+
+
+def upsample_linear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[h2, w2, C] -> [h, w, C]: ``jax.image.resize(img, (h, w, C),
+    "linear")`` for an upsample, axis by axis."""
+    def along(a, axis, n_out):
+        i0, i1, w0, w1 = (torch.from_numpy(t).to(a.device)
+                          for t in _linear_resize_taps(a.shape[axis], n_out))
+        shape = [1] * a.dim()
+        shape[axis] = n_out
+        return (a.index_select(axis, i0) * w0.reshape(shape)
+                + a.index_select(axis, i1) * w1.reshape(shape))
+
+    return along(along(img, 0, h), 1, w)
+
+
 def shade_transmission(scene: Scene, g: GBuffer, ctx: ShadeContext,
-                       pyramid: MipPyramid, level_set: tuple) -> torch.Tensor:
-    """Dense [H, W] transmission shade -> [H, W, 3]."""
+                       pyramid: MipPyramid, level_set: tuple | None) -> torch.Tensor:
+    """Dense [H, W] transmission shade -> [H, W, 3]. With
+    ``ctx.half_res_refraction`` the pyramid is fetched at every second
+    pixel of every second row and upsampled (shading.py:1140-1147),
+    through the tensor path."""
     h, w = g.depth.shape
     dev = g.depth.device
     px, py = _dense_coords(h, w, dev)
-    block_py, block_px0 = block_origins(
-        torch.arange((h * w) // 128, dtype=torch.int32, device=dev), w)
+    block_py = block_px0 = fb_sampler = None
+    if ctx.half_res_refraction:
+        def fb_sampler(uv, lod):
+            uv2 = uv.reshape(h, w, 2)[::2, ::2]
+            lod2 = lod.reshape(h, w)[::2, ::2]
+            c = sample_pyramid_lod(pyramid, uv2, lod2, level_set)
+            return upsample_linear(c, h, w).reshape(-1, 3)
+    else:
+        block_py, block_px0 = block_origins(
+            torch.arange((h * w) // 128, dtype=torch.int32, device=dev), w)
     out = shade_transmission_flat(scene, flatten_gbuffer(g), _flatten_ctx_factors(ctx),
-                                  pyramid, level_set, px, py, block_py, block_px0)
+                                  pyramid, level_set, px, py, block_py, block_px0,
+                                  fb_sampler)
     return out.reshape(h, w, 3)

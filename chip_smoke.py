@@ -6,8 +6,9 @@
 
 The second form only builds the kernels, captures every kernel's calls
 on the widest frame that launches it (kernels 1-5 on phase 7's
-ray-traced frame, kernel 6 on phase 8's visibility-buffer frame) and
-prints one JSON line of their ms per frame: run beside another tree's
+ray-traced frame, kernel 6 on phase 8's visibility-buffer frame, its
+alpha form on phase 13's) and prints one JSON line of their ms per
+frame: run beside another tree's
 package (a copy of this script in that tree's root), it times that
 tree's kernels on the same inputs, so two versions can be timed in turns
 in one call.
@@ -164,7 +165,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    count, against the default cap of 507) and no other, kernel 1 bit for
    bit against its plain version on the frame's calls; (f) --procedural dragon
    --spotlights --rotate-model --frames 3: three PNGs, finite, frames 1
-   and 2 differ from frame 0.
+   and 2 differ from frame 0; (g) --procedural dragon --roughness-override
+   0.25 --debug-checks: exit 0, no report, kernel 6 (its checked form)
+   launched twice and nothing else, the frame equal to phase 8's.
 12. the frame variants (variants_phase), each frame at 1920x1080 unless
    said, with every kernel call through the kernel and its plain version
    at phase 4's tolerances (kernels 1 and 6 bit for bit, kernel 5's hit
@@ -187,6 +190,25 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    nowhere brighter in HDR than without them); (f) the visibility-buffer
    flagship with ray-traced shadows (likewise against phase 8's frame);
    (g) cli.main with each flag: (a)'s frames exactly, and (a)'s launches.
+13. the visibility-buffer stress frame (vis_clip_phase): the stress scene
+   at RenderConfig(1920, 1080, opaque_block_cap_frac=0.8125,
+   use_pallas_raster=False) with tests/goldens/stress_hd.png's camera and
+   lights, whose raster kills alpha-clip fragments in kernel 6's depth
+   race (its alpha form). (a) kernel 6's two calls through the kernel and
+   its plain version: tri ids, depth and barycentrics bit for bit, with
+   the fragments the alpha test checks and taps per call; (b) with the
+   counts reset, raster_vis 2 launches and no other kernel; (c) a finite
+   image in [0, 1] without overflow, its FrameDiagnostics equal to the
+   reference's (STRESS_VIS_DIAGNOSTICS); (d) sRGB RMSE < 4e-3 against
+   stress_hd.png over the whole frame (the reference's render of this
+   branch); (e) the median ms/frame over 10 after 2, per-pass ms, and the
+   alpha form's ms per frame beside its plain version's and its bound
+   (kernel_work with alpha_taps); (f) checked_frame_fn on the same frame
+   (kernel 6's checked form): silent and bit-equal; (g) injected
+   out-of-range indices at covered sites: the clip materials' diffuse
+   texture past the atlas through the checked frame, and a run start past
+   the records through the checked kernel: both reported, and the process
+   renders the same frame afterwards.
 
 The kernels JSON object reports every kernel on the widest path that
 launches it, named in its "frame" key: kernels 1-5 on the ray-traced
@@ -195,8 +217,9 @@ phase 8; the bindless frame, with 48 lights, is kernel 3's busiest,
 reported in phase 10(f)), the closest-hit walk on the AS-debug dragon
 ("as_debug", phase 11(b); it replaces no TPU kernel, its "replaces"
 says so); kernel 4's row also carries its full form on the
-textured-roughness frame ("full_form", phase 12(b)): launches, worst
-parity error over
+textured-roughness frame ("full_form", phase 12(b)) and kernel 6's its
+alpha form on the visibility-buffer stress frame ("alpha_form", phase
+13): launches, worst parity error over
 every frame checked, ms per frame of the kernel (the card's time for
 the frame's calls, CUDA events queued behind a spin kernel so that they
 do not read the host's enqueue time, see device_ms; the host's time is
@@ -475,11 +498,24 @@ def kernel_work(name: str, call, data=None) -> tuple:
         # pixel (data[0] such pairs) the w and z sums, a divide and 5 tests
         # more (31 in all); per pixel with a winner (data[1]) its resolve
         # once: the edge functions, the w and z sums, the depth's divide,
-        # the edge sum and the two barycentrics (28)
-        covered, winners = data
+        # the edge sum and the two barycentrics (28). The alpha form
+        # (data[2], alpha_taps) adds per fragment it tests that is a
+        # clip-bucket triangle's with a diffuse texture 154 operations (the
+        # uv and its derivatives 58, the LOD 14, the two levels' footprints
+        # 51, their bilinear lerps and the blend 29, the factor and the
+        # cutoff test 2) and 2 per other tested fragment (its clip flag),
+        # and the bytes of the distinct texels the taps read (the bf16
+        # alpha of each once) and of the tested triangles' side-table rows
+        # and materials
+        covered, winners = data[:2]
         nbytes = (runs + nbig) * 64 + k * 12 + 4 + px * 4 * (seeded + 4)
         pairs = (runs + k * nbig) * tile_w * tile_h
-        return nbytes, (pairs - covered) * 15 + covered * 31 + winners * 28
+        ops = (pairs - covered) * 15 + covered * 31 + winners * 28
+        if len(data) > 2:
+            tested, textured, tap_bytes = data[2]
+            nbytes += tap_bytes
+            ops += textured * 154 + (tested - textured) * 2
+        return nbytes, ops
     if name == "bvh_occlusion":
         _, table, rays, _ = args
         inner, tests = data
@@ -1079,6 +1115,208 @@ def stress_phase(card: str, max_err: dict) -> dict:
     return launches
 
 
+# FrameDiagnostics of the reference's 1080p stress frame on its
+# visibility-buffer branch (the render of tests/goldens/stress_hd.png:
+# the bench's stress config, camera and lights), read once from the
+# reference on the CPU and pinned; tests/test_torch_vis_clip.py's slow
+# test re-derives them.
+STRESS_VIS_DIAGNOSTICS = {
+    "max_bin_count": 183, "bin_capacity": 2048, "big_tri_count": 50,
+    "big_tri_capacity": 256, "opaque_blocks": 11218, "opaque_block_capacity": 13163,
+    "transmission_blocks": 1641, "transmission_block_capacity": 4050,
+    "clip_unresolved": 0, "mid_tri_count": 0, "mid_tri_capacity": 0,
+    "transmission_tiles": 0, "transmission_tile_capacity": 0, "clip_tiles": 0,
+    "clip_tile_capacity": 0, "tier_overflow": 0, "clip_round_demand": (),
+    "clip_round_caps": (), "pair_demand": 0, "pair_capacity": 0,
+}
+
+
+def alpha_taps(call) -> tuple:
+    """(fragments kernel 6's alpha form tests, those it taps in the atlas:
+    a clip-bucket triangle's with a diffuse texture, the bytes the tests
+    need: the bf16 alpha of each distinct texel the taps read, and the
+    side-table row of each tested triangle and the row of each of its
+    materials) of one recorded call, counted on its plain version's
+    segmented race: the kernel's work items, so the same fragments beat a
+    segment's current best and are tested."""
+    import torch
+    from transmission_renderer_tpu_torch.ops import raster_vis
+    from transmission_renderer_tpu_torch.ops.texture import _level_meta_from_rows, _tap_footprint
+    from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, LAYER_SHIFT, WRAP_REPEAT
+
+    args, kw = call
+    alpha = kw["alpha"]
+    seen = []
+    tap = raster_vis.alpha_tap
+
+    def recording(*a):
+        seen.append(tap(*a))
+        return seen[-1]
+
+    raster_vis.alpha_tap = recording
+    try:
+        raster_vis.raster_vis_plain(*args, **kw, segment=raster_vis.SEG)
+    finally:
+        raster_vis.alpha_tap = tap
+    tested = textured = 0
+    keys, tris, mids = [], [], []
+    for tri, mid, tid, rows, uv, lod in seen:
+        tested += tri.numel()
+        tris.append(tri)
+        mids.append(mid)
+        at = (alpha.tri_clip[tri] != 0) & (tid >= 0)
+        textured += int(at.sum())
+        rows, uv, lod, tid = rows[at], uv[at], lod[at], tid[at]
+        l0 = torch.floor(torch.clamp(lod, min=0.0)).to(torch.int32)
+        image = ((tid & IMAGE_MASK).long() * 32 + (tid >> LAYER_SHIFT).long()) * 16
+        for lvl in (l0, l0 + 1):
+            off, w, h = _level_meta_from_rows(rows, lvl)
+            _, _, _, x0, y0 = _tap_footprint(off, w, h, uv, WRAP_REPEAT)
+            level = torch.minimum(torch.clamp(lvl, min=0), rows[:, 0] - 1).long()
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    x, y = ((x0 + dx) % w).long(), ((y0 + dy) % h).long()
+                    keys.append(((image + level) << 32) | (y << 16) | x)
+    texels = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
+    n_tri = int(torch.unique(torch.cat(tris)).numel()) if tris else 0
+    n_mat = int(torch.unique(torch.cat(mids)).numel()) if mids else 0
+    return tested, textured, texels * 2 + n_tri * 32 + n_mat * 12
+
+
+def vis_clip_phase(card: str, max_err: dict) -> dict:
+    """Phase 13, the visibility-buffer stress frame: the stress scene at
+    the bench's config on the visibility-buffer branch, whose raster
+    kills alpha-clip fragments in kernel 6's depth race (its alpha form),
+    with the camera and lights of tests/goldens/stress_hd.png; then the
+    debug-checks frame (kernel 6's checked form) on it, clean and with
+    injected out-of-range indices. -> kernel 6's alpha form's figures."""
+    import io
+
+    import torch
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.ops import raster_vis
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render import checks
+    from transmission_renderer_tpu_torch.render.checks import checked_frame_fn
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+    from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
+    from transmission_renderer_tpu_torch.utils.png import read_png
+    from transmission_renderer_tpu_torch.utils.profiling import PASS_NAMES
+
+    dev = torch.device("cuda", 0)
+    scene, dl, flags = build_stress_scene().finish_bundle(device=dev)
+    cfg = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
+                       use_pallas_raster=False)
+    lights = pack_lights([
+        point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
+        point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0),
+    ], device=dev)
+    params = make_params(cfg, bench_rig(0), dev)  # render_stress_hd_golden's camera
+    require(flags.has_alpha_clip, "the stress scene has alpha clip")
+
+    def frame(**kw):
+        return render_frame(scene, dl, params, lights, cfg, flags, **kw)
+
+    h = raster_vis.KERNEL
+    handles = port_handles()
+    # (a) kernel 6's alpha form on the frame's two calls, bit for bit
+    calls = capture((h,), frame)
+    require(len(calls[h.name]) == 2 and all("alpha" in kw for _, kw in calls[h.name]),
+            f"vis clip: {len(calls[h.name])} kernel-6 calls, expected 2 with alpha")
+    check_parity((h,), calls, max_err, "vis clip ")
+    taps = [alpha_taps(c) for c in calls[h.name]]
+    log(f"vis clip alpha taps per call: fragments tested {[t[0] for t in taps]}, tapped in "
+        f"the atlas {[t[1] for t in taps]}, bytes of their texels and rows "
+        f"{[t[2] for t in taps]}")
+
+    # (b) + (c) one frame with the counts reset
+    (img, diag), launches = count_launches(handles, frame, return_diagnostics=True)
+    log(f"vis clip launches per frame: {launches}")
+    expect = dict.fromkeys(launches, 0) | {"raster_vis": 2}
+    require(launches == expect, f"vis clip launch counts {launches}, expected {expect}")
+    require(tuple(img.shape) == (1080, 1920, 3), f"vis clip image shape {tuple(img.shape)}")
+    require(bool(torch.isfinite(img).all()), "vis clip image has non-finite values")
+    lo, hi = float(img.min()), float(img.max())
+    require(0.0 <= lo and hi <= 1.0, f"vis clip image outside [0, 1]: [{lo}, {hi}]")
+    got_diag = diagnostics_dict(diag)
+    log(f"vis clip diagnostics: {got_diag}, overflowed {diag.overflowed()}")
+    require(not diag.overflowed(), f"vis clip capacity overflow: {diag}")
+    bad = {f: (v, STRESS_VIS_DIAGNOSTICS[f]) for f, v in got_diag.items()
+           if v != STRESS_VIS_DIAGNOSTICS[f]}
+    require(not bad, f"vis clip diagnostics differ from the reference's (got, expected): {bad}")
+
+    # (d) the golden, whole frame: the reference's own render of this branch
+    golden = read_png(os.path.join(ROOT, "tests", "goldens", "stress_hd.png"))[..., :3] / 255.0
+    rmse = float(np.sqrt(np.mean((linear_to_srgb(img.cpu().numpy()) - golden) ** 2)))
+    log(f"vis clip golden stress_hd.png: sRGB RMSE {rmse:.6f} over the whole frame "
+        f"(limit 4e-3) on [{card}]")
+    require(rmse < 4e-3, f"vis clip sRGB RMSE {rmse} vs golden")
+
+    # (e) timing, passes, kernel 6's alpha form against its bound
+    times = timed_frames(frame, 2, 10)
+    med = statistics.median(times)
+    log(f"vis clip frame 1920x1080 on [{card}]: median {med:.3f} ms/frame "
+        f"({1000.0 / med:.2f} fps), min {min(times):.3f}, max {max(times):.3f}")
+    profile_passes(frame, card, PASS_NAMES)
+    k_ms, h_ms = kernel_ms(h, calls[h.name])
+    p_ms = plain_ms(h, calls[h.name])
+    per_call = [(raster_vis.covered_pairs(*a, pass_class=kw.get("pass_class")),
+                 int((h.replay((a, kw), True)[0] >= 0).sum()), t)
+                for (a, kw), t in zip(calls[h.name], taps)]
+    works = [kernel_work(h.name, c, pc) for c, pc in zip(calls[h.name], per_call)]
+    b_ms, b_by = bound_of(works)
+    log(f"vis clip kernel raster_vis (alpha form) on [{card}]: {k_ms:.3f} ms/frame on the "
+        f"device (host {h_ms:.3f}), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms by {b_by} "
+        f"({sum(w[0] for w in works)} bytes, {sum(w[1] for w in works)} operations), "
+        f"{b_ms / k_ms:.4f} of the bound reached, {len(calls[h.name])} calls per frame; "
+        f"covering pairs {[c[0] for c in per_call]}, pixels with a winner "
+        f"{[c[1] for c in per_call]}, fragments tapped {[t[1] for t in taps]}")
+
+    # (f) the debug-checks frame: silent, and the frame bit for bit
+    out = io.StringIO()
+    render_checked = checked_frame_fn(config=cfg, flags=flags, out=out)
+    checked, launches_f = count_launches(
+        handles, lambda: render_checked(scene, dl, params, lights))
+    require(out.getvalue() == "", f"checked frame reported: {out.getvalue()!r}")
+    require(torch.equal(checked, img), "the checked frame differs from the frame")
+    require(launches_f == expect, f"checked frame launches {launches_f}")
+    log(f"vis clip checked frame: silent, bit-equal to the frame, launches {launches_f}")
+
+    # (g) injected faults at covered sites: the clip materials' diffuse
+    # texture past the atlas (kernel 6's error word and the material
+    # matrix's counter), and a run start past the records (kernel 6's
+    # error word); the process and its context go on
+    m = scene.materials
+    n_images = int(scene.atlas_meta.shape[0])
+    bad_scene = scene._replace(materials=m._replace(tex_diffuse=torch.where(
+        m.tex_diffuse >= 0, torch.full_like(m.tex_diffuse, n_images), m.tex_diffuse)))
+    out = io.StringIO()
+    bad = checked_frame_fn(config=cfg, flags=flags, out=out)(bad_scene, dl, params, lights)
+    torch.cuda.synchronize()
+    lines = out.getvalue().splitlines()
+    log(f"vis clip checked frame, diffuse texture past the atlas: {lines}")
+    require(any(raster_vis.CHECK_SITES[5] in ln and "out-of-bounds" in ln for ln in lines),
+            "kernel 6's checked form did not report the atlas image")
+    require(bool(torch.isfinite(bad).all()), "the faulty checked frame is not finite")
+    args, kw = calls[h.name][0]
+    run_start = args[2].clone()
+    run_start[int(torch.argmax(args[3]))] = args[0][0].shape[0] + 5
+    with checks.collect() as found:
+        h.replay((args[:2] + (run_start,) + args[3:], kw), True)
+    torch.cuda.synchronize()
+    log(f"vis clip checked kernel 6, run start past the records: {found}")
+    require((raster_vis.CHECK_SITES[0], None) in found, "the bad run start was not reported")
+    again = render_frame(scene, dl, params, lights, cfg, flags)
+    require(torch.equal(again, img), "the frame after the faults differs")
+    log("vis clip: after the faults the process goes on and renders the same frame")
+    return {"frame": "stress_vis", "launches": launches["raster_vis"],
+            "max_abs_err": max_err["raster_vis"], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "fragments_tested": [t[0] for t in taps], "fragments_tapped": [t[1] for t in taps],
+            "frame_ms": med}
+
+
 # The bench's other scenes (bench.py:275-293), each at its bench config,
 # the bench's first camera (bench_rig(0): bench.py::make_rig, the
 # CameraRig's default sun) and lights (bench.py:93-99; bindless_lights(48)
@@ -1393,12 +1631,14 @@ def check_closest(card: str, tag: str, call, max_err: dict) -> tuple:
     return p_ms, (int(inner.sum()), tests.sum(dim=0).tolist(), alpha_tests), n, hit
 
 
-def cli_phase(card: str, max_err: dict, flagship_img) -> dict:
+def cli_phase(card: str, max_err: dict, flagship_img, vis_img=None) -> dict:
     """Phase 11, the port's CLI at 1920x1080 in-process (cli.main): the
     flagship frame, the AS-debug view on the dragon and on the stress
     scene (the closest-hit kernel against its plain walk), the cluster
-    views, multi.glb with --check-nan, and the spotlights with the
-    rotating model over 3 frames. -> the closest-hit kernel's row."""
+    views, multi.glb with --check-nan, the spotlights with the rotating
+    model over 3 frames, and the flagship with --debug-checks (equal to
+    ``vis_img``, phase 8's frame, when given). -> the closest-hit
+    kernel's row."""
     import tempfile
 
     import torch
@@ -1527,6 +1767,20 @@ def cli_phase(card: str, max_err: dict, flagship_img) -> dict:
         log(f"cli (f) spotlights + rotate-model: frames 1 and 2 differ from frame 0 by "
             f"{diffs} (max abs)")
         require(min(diffs) > 0.0, "the spotlight / rotation frames did not change")
+
+        # (g) the flagship with --debug-checks: the visibility-buffer
+        # branch, kernel 6's checked form, no report
+        frames, _, launches_g, err = cli_run(
+            handles, ["--procedural", "dragon", "--roughness-override", "0.25",
+                      "--debug-checks"] + out("checked.png"))
+        require("out-of-bounds" not in err and "CHECKS" not in err,
+                f"--debug-checks reported on the flagship: {err!r}")
+        require(launches_g == dict.fromkeys(names, 0) | {"raster_vis": 2},
+                f"--debug-checks launches {launches_g}")
+        same = vis_img is None or bool(np.array_equal(frames[0], vis_img.cpu().numpy()))
+        log(f"cli (g) --debug-checks flagship: exit 0, no report, launches {launches_g}, "
+            f"equal to phase 8's frame: {same}")
+        require(same, "--debug-checks frame differs from phase 8's visibility-buffer frame")
     return row
 
 
@@ -1867,6 +2121,17 @@ def kernel_times() -> int:
             if calls[h.name] and h.name not in out:
                 dev_ms, h_ms = kernel_ms(h, calls[h.name])
                 out[h.name] = {"ms": dev_ms, "host_ms": h_ms, "calls": len(calls[h.name])}
+    # kernel 6's alpha form, on phase 13's frame
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.ops import raster_vis
+
+    s_scene, s_dl, s_flags = build_stress_scene().finish_bundle(device=dev)
+    cfg = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
+                       use_pallas_raster=False)
+    calls = capture((raster_vis.KERNEL,), lambda: render_frame(
+        s_scene, s_dl, make_params(cfg, bench_rig(0), dev), lights, cfg, s_flags))
+    dev_ms, h_ms = kernel_ms(raster_vis.KERNEL, calls["raster_vis"])
+    out["raster_vis_alpha"] = {"ms": dev_ms, "host_ms": h_ms, "calls": len(calls["raster_vis"])}
     print(json.dumps({"kernel_times": out, "root": ROOT, "card": card_line()}), flush=True)
     return 0
 
@@ -2189,7 +2454,7 @@ def main() -> int:
     bench_launches, bench_kernels = bench_scenes_phase(card, max_err)
 
     # ---- 11. the CLI ---------------------------------------------------------------
-    kernel_rows.append(cli_phase(card, max_err, img))
+    kernel_rows.append(cli_phase(card, max_err, img, img_vis))
 
     # ---- 12. the frame variants --------------------------------------------------
     full_form = variants_phase(card, max_err, {
@@ -2198,6 +2463,12 @@ def main() -> int:
     for row in kernel_rows:  # kernel 4's row covers both of its forms
         if row["name"] == "transmission_fetch":
             row["full_form"] = full_form
+
+    # ---- 13. the visibility-buffer stress frame: kernel 6's alpha form ------
+    alpha_form = vis_clip_phase(card, max_err)
+    for row in kernel_rows:  # kernel 6's row covers its alpha form
+        if row["name"] == "raster_vis":
+            row["alpha_form"] = alpha_form
 
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]

@@ -169,7 +169,19 @@ def test_debug_views_render(tmp_path):
     (["--debug-checks"], "item 10"),
 ])
 def test_unported_modes_exit_2(flag, item, tmp_path, capsys):
+    """The CLI modes of ROADMAP queue 1: --devices 2 (item 8) exits 2 with
+    the item in its message; --debug-checks (item 10) renders since it was
+    ported, with no check report, and exits 2 only beside the flags the
+    reference's CLI refuses with it (tests/test_torch_checks.py has them
+    all)."""
     argv = ["--cpu", "--procedural", "test", "-o", str(tmp_path / "u.png")] + SMALL + flag
+    if item == "item 10":
+        assert cli.main(argv) == 0
+        assert "out-of-bounds" not in capsys.readouterr().err
+        assert os.listdir(tmp_path) == ["u.png"]
+        assert cli.main(argv + ["--ray-tracing"]) == 2
+        assert "single-device non-RT" in capsys.readouterr().err
+        return
     assert cli.main(argv) == 2
     assert f"ROADMAP queue 1, {item}" in capsys.readouterr().err
     assert not os.listdir(tmp_path)

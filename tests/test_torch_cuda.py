@@ -8,7 +8,12 @@ depth-peel bound, and with a big list walked before the runs; kernel 6 (the visi
 orders on random scenes, and the visibility-buffer frame of each scene;
 the closest-hit, alpha-tested walk of the AS-debug view on the stress
 scene and on a two-class atlas with a bundle layer's alpha test (with
-dead rays), and the CLI's frame and AS-debug view on the card.
+dead rays), and the CLI's frame and AS-debug view on the card; kernel 2
+bit for bit against its plain version (its trilinear tap is
+atlas_tap.cuh's, shared with kernel 6's alpha form); kernel 6's alpha
+form and its checked form on the stress scene's visibility-buffer frame
+at 256x144 (bit for bit, the checked frame silent and equal, injected
+out-of-range indices reported through the error word).
 Marked ``cuda``: on a host without a CUDA device they skip (the check
 runs inside the fixture, never at import).
 
@@ -150,6 +155,21 @@ def test_kernel_matches_plain(captured, name):
             assert bool(((sun_f > 0.0) & (sun_f < 1.0)).any())
     for call in calls:
         _check_against_plain(handle, call)
+
+
+def test_tap_finish_bit_equal_to_plain(captured):
+    """Kernel 2 (its trilinear tap now atlas_tap.cuh's, shared with kernel
+    6's alpha form) equals its plain version bit for bit."""
+    from transmission_renderer_tpu_torch.ops import tap_finish
+
+    _, _, out = captured
+    calls, _ = out["tap_finish"]
+    assert calls
+    for call in calls:
+        got = tap_finish.TAP_KERNEL.replay(call, True)
+        ref = tap_finish.TAP_KERNEL.replay(call, False)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu().view(torch.int32), r.cpu().view(torch.int32))
 
 
 def _check_against_plain(handle, call) -> None:
@@ -1012,3 +1032,96 @@ def test_cli_on_the_card(tmp_path):
                         frames_out=frames) == 0
         assert handle.launches > before
         assert np.isfinite(frames[0]).all() and frames[0].max() > 0.0
+
+
+# ---------------------------------------------------------------------------
+# kernel 6's alpha form and checked form: the stress scene's vis frame
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def clip_captured():
+    """The stress scene's visibility-buffer frame (alpha clip: kernel 6's
+    alpha form in both passes) at 256x144 on the card, its kernel-6 calls
+    recorded -> (scene, draw list, flags, params, lights, config, image,
+    calls, launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.ops import raster_vis
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    dev = torch.device("cuda")
+    scene, dl, flags = build_stress_scene(grid=3).finish_bundle(device=dev)
+    cfg = RenderConfig(width=256, height=144, use_pallas_raster=False)
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 3.0, 2.5], np.float32)
+    rig.camera.pitch = -0.5
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device=dev)
+    lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device=dev)
+    handles = _handles() + (raster_vis.KERNEL,)
+    for h in handles:
+        h.recorder = []
+        h.launches = 0
+    img = render_frame(scene, dl, params, lights, cfg, flags)
+    torch.cuda.synchronize()
+    launches = {h.name: h.launches for h in handles}
+    calls = raster_vis.KERNEL.recorder
+    for h in handles:
+        h.recorder = None
+    return scene, dl, flags, params, lights, cfg, img, calls, launches
+
+
+def test_vis_clip_alpha_form_matches_plain(clip_captured):
+    """Both passes through kernel 6's alpha form: tri, depth, b1, b2 bit
+    for bit against the plain version, and the alpha test kills."""
+    from transmission_renderer_tpu_torch.ops import raster_vis
+
+    *_, img, calls, launches = clip_captured
+    assert launches == {"raster_gbuf": 0, "tap_finish": 0, "shade": 0, "transmission_fetch": 0,
+                        "bvh_occlusion": 0, "raster_vis": 2}
+    assert bool(torch.isfinite(img).all())
+    assert len(calls) == 2 and all("alpha" in kw for _, kw in calls)
+    for call in calls:
+        _vis_compare(raster_vis.KERNEL.replay(call, True), raster_vis.KERNEL.replay(call, False),
+                     min_covered=100)
+    args, kw = calls[0]
+    no_alpha = {k: v for k, v in kw.items() if k != "alpha"}
+    assert not torch.equal(raster_vis.KERNEL.replay((args, no_alpha), True)[0],
+                           raster_vis.KERNEL.replay(calls[0], True)[0])
+
+
+def test_vis_clip_checked_form(clip_captured):
+    """The checked form: the checked frame prints nothing and equals the
+    frame; a run start past the records and a diffuse texture past the
+    atlas set their bits of the error word, and the context lives on."""
+    import io
+
+    from transmission_renderer_tpu_torch.ops import raster_vis
+    from transmission_renderer_tpu_torch.render import checks
+    from transmission_renderer_tpu_torch.render.checks import checked_frame_fn
+
+    scene, dl, flags, params, lights, cfg, img, calls, _ = clip_captured
+    log = io.StringIO()
+    checked = checked_frame_fn(config=cfg, flags=flags, out=log)(scene, dl, params, lights)
+    assert log.getvalue() == "" and torch.equal(checked, img)
+    args, kw = calls[0]
+    run_start = args[2].clone()
+    run_start[int(torch.argmax(args[3]))] = args[0][0].shape[0] + 5
+    alpha = kw["alpha"]
+    n_images = alpha.atlas_meta.shape[0]
+    bad_tex = alpha._replace(tex_diffuse=torch.where(
+        alpha.tex_diffuse >= 0, torch.full_like(alpha.tex_diffuse, n_images),
+        alpha.tex_diffuse))
+    for bad_args, bad_kw, site in ((args[:2] + (run_start,) + args[3:], kw, 0),
+                                   (args, dict(kw, alpha=bad_tex), 5)):
+        with checks.collect() as found:
+            raster_vis.KERNEL.replay((bad_args, bad_kw), True)
+        torch.cuda.synchronize()
+        assert (raster_vis.CHECK_SITES[site], None) in found, found
+    with checks.collect() as found:
+        got = raster_vis.KERNEL.replay(calls[0], True)
+    assert found == []
+    _vis_compare(got, raster_vis.KERNEL.replay(calls[0], False), min_covered=100)

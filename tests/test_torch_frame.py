@@ -155,13 +155,17 @@ def test_sparse_block_helpers_match_reference():
 
 def test_unported_branches_refuse():
     """The branches outside the port raise NotImplementedError (no silent
-    detour): alpha clip on the visibility-buffer branch, the G-buffer
-    kernel with tiles other than 8x128, and pair-stream compaction. (The
-    quality flags, every width, the dense transmission shade, ray-traced
-    shadows on every transmission path and on the visibility-buffer
-    branch, and textured transmissive roughness render since they were
-    ported: tests/test_torch_variants_*.py; so do the block-sparse opaque
-    shade, the 256-tile floor's dense paths and kernel-branch alpha clip:
+    detour): the G-buffer kernel with tiles other than 8x128, and
+    pair-stream compaction. Alpha clip on the visibility-buffer branch
+    (ROADMAP queue 1, item 6a) renders since it was ported: here the
+    dragon with the flag on and no clip-bucket triangle gives the frame
+    without it, bit for bit (tests/test_torch_vis_clip.py holds the stress
+    scene to the reference). (The quality flags, every width, the dense
+    transmission shade, ray-traced shadows on every transmission path and
+    on the visibility-buffer branch, and textured transmissive roughness
+    render since they were ported: tests/test_torch_variants_*.py; so do
+    the block-sparse opaque shade, the 256-tile floor's dense paths and
+    kernel-branch alpha clip:
     tests/test_torch_stress_frame.py::test_former_refusals_render, and
     ``debug_clusters``: tests/test_torch_cli.py.)"""
     builder = build_dragon_scene(stacks=8, sectors=16)
@@ -169,8 +173,12 @@ def test_unported_branches_refuse():
     rig = _rig(*CAM)
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     vis = dataclasses.replace(CFG, use_pallas_raster=False)
+    params = make_frame_params(vis, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device="cpu")
+    clipped = render_frame(scene, dl, params, lights, vis, flags._replace(has_alpha_clip=True))
+    assert bool(torch.isfinite(clipped).all())
+    assert torch.equal(clipped, render_frame(scene, dl, params, lights, vis, flags))
     for bad, fl, why in (
-            (vis, flags._replace(has_alpha_clip=True), "item 6a"),
             (dataclasses.replace(CFG, tile_w=32), flags, "8x128"),
             (dataclasses.replace(CFG, pallas_pair_cap_frac=0.5), flags, "left out")):
         params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,

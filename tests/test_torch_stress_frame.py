@@ -305,11 +305,13 @@ def test_block_sparse_opaque_shade_gathers_shadow_factors():
 
 
 def test_stress_refusals():
-    """What stays out of the port raises NotImplementedError on the
-    stress scene: alpha clip on the visibility-buffer branch (ROADMAP
-    queue 1, item 6a). Ray-traced shadows with alpha clip render (the
-    compacted worklist's shadow rays): finite, in [0, 1], and in HDR
-    nowhere brighter than the frame without them and darker somewhere."""
+    """The stress scene's former refusal renders: alpha clip on the
+    visibility-buffer branch (ROADMAP queue 1, item 6a, kernel 6's alpha
+    form; tests/test_torch_vis_clip.py holds it to the reference): finite,
+    in [0, 1], and not the kernel branch's unpeeled image. Ray-traced
+    shadows with alpha clip render (the compacted worklist's shadow rays):
+    finite, in [0, 1], and in HDR nowhere brighter than the frame without
+    them and darker somewhere."""
     builder = build_stress_scene(grid=2)
     scene, dl, flags = builder.finish_bundle(device="cpu")
     rig = _rig(*CAM)
@@ -318,8 +320,10 @@ def test_stress_refusals():
     cfg = dataclasses.replace(pal, use_pallas_raster=False)
     params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        render_frame(scene, dl, params, lights, cfg, flags)
+    vis = render_frame(scene, dl, params, lights, cfg, flags)
+    assert torch.isfinite(vis).all() and vis.min() >= 0.0 and vis.max() <= 1.0
+    unclipped = render_frame(scene, dl, params, lights, cfg, flags._replace(has_alpha_clip=False))
+    assert (vis != unclipped).any()
     rt = dataclasses.replace(pal, ray_traced_shadows=True, alpha_clip_rounds=2)
     params = make_frame_params(rt, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")

@@ -12,13 +12,17 @@ written by ``utils/png.py``.
     python -m transmission_renderer_tpu_torch.cli --procedural dragon --as-debug -o as_debug.png
     python -m transmission_renderer_tpu_torch.cli model.glb --external-model --no-sponza --check-nan
     python -m transmission_renderer_tpu_torch.cli --cpu --procedural test --width 128 --height 72
+    python -m transmission_renderer_tpu_torch.cli --cpu --debug-checks --procedural stress --width 128 --height 72
 
 It runs on the card unless ``--cpu`` is given, and without a card it
 exits non-zero rather than carry on on the CPU. The quality flags
 ``--half-res-refraction``, ``--quad-taps`` and ``--bf16-lights`` render
 as the reference's do (through the tensor shade, where its gate sends
-them). A mode the port does not have yet (``--devices`` > 1,
-``--debug-checks``, a JPEG image in a glTF, a frame branch
+them). ``--debug-checks`` renders through render/checks.py's
+checked_frame_fn (the visibility-buffer branch with the index checks
+on), and exits 2 with the reference's message beside ``--devices`` > 1,
+``--as-debug`` or ``--ray-tracing``. A mode the port does not have yet
+(``--devices`` > 1, a JPEG image in a glTF, a frame branch
 ``render_frame`` refuses) prints the NotImplementedError message, which
 says why, and exits with code 2, as the reference's CLI does for the
 combinations it rejects.
@@ -159,10 +163,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--devices {args.devices}: row-band sharding: ROADMAP queue 1, item 8 "
             "(row-band sharding)")
-    if args.debug_checks:
-        raise NotImplementedError(
-            "--debug-checks (jax.experimental.checkify index checks): ROADMAP queue 1, "
-            "item 10 (render/checks.py for PyTorch)")
 
 
 def main(argv=None, frames_out: list | None = None) -> int:
@@ -193,6 +193,10 @@ def _run(args, dev, frames_out) -> int:
     from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
     from transmission_renderer_tpu_torch.utils.png import write_png
 
+    if args.debug_checks and (args.devices > 1 or args.as_debug or args.ray_tracing):
+        print("error: --debug-checks supports the single-device "
+              "non-RT frame path only", file=sys.stderr)
+        return 2
     _refuse_unported(args)
     config = RenderConfig(
         width=args.width,
@@ -206,6 +210,8 @@ def _run(args, dev, frames_out) -> int:
         half_res_shadow_rays=args.half_res_shadows,
         nol_shadow_gate=args.nol_shadow_gate,
         bf16_light_math=args.bf16_lights,
+        # the checks run on the visibility-buffer branch (render/checks.py)
+        use_pallas_raster=False if args.debug_checks else None,
     )
 
     # ---- scene -------------------------------------------------------------
@@ -268,6 +274,11 @@ def _run(args, dev, frames_out) -> int:
     else:
         def render(s, d, p, lt):
             return render_frame(s, d, p, lt, config, flags, bvh=bvh)
+
+    if args.debug_checks:
+        from transmission_renderer_tpu_torch.render.checks import checked_frame_fn
+
+        render = checked_frame_fn(config=config, flags=flags)
 
     def check_frame(ldr):
         if args.check_nan:

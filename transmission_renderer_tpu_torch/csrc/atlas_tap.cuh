@@ -1,7 +1,9 @@
 // The atlas tap's device code, shared by kernel 2 (tap_finish.cu, the
-// material taps) and the closest-hit walk (bvh_closest.cu, the caster's
+// material taps), kernel 6's alpha form (raster_vis.cu, the in-raster
+// alpha test) and the closest-hit walk (bvh_closest.cu, the caster's
 // alpha test): one mip level's bilinear footprint in the bf16 quad-block
-// atlas (scene/textures.py) and its lerp.
+// atlas (scene/textures.py) and its lerp, and the two-level trilinear tap
+// built from them.
 //
 // The arithmetic is ops/texture.py's (_level_meta_from_rows,
 // _wrap_bilinear_coords, _tap_footprint, _flat_row_index, _lerp4), term for
@@ -74,6 +76,34 @@ __device__ __forceinline__ float lerp4(const uint16_t* q, size_t base, int strid
     const float top = c00 + (c10 - c00) * fx;
     const float bot = c01 + (c11 - c01) * fx;
     return top + (bot - top) * fy;
+}
+
+// A trilinear tap's two mip levels: floor(lod) and the next, lod clamped
+// at 0 (ops/texture.py::sample_bundle_rows).
+struct Trilinear {
+    Footprint f0, f1;
+    float frac;
+};
+
+__device__ inline Trilinear trilinear_footprint(const int* row, float lod, float u, float v,
+                                                int wrap, int row_elems, int lc) {
+    lod = lod < 0.0f ? 0.0f : lod;
+    const float l0f = floorf(lod);
+    const int l0 = (int)l0f;
+    Trilinear t;
+    t.frac = lod - (float)l0;
+    t.f0 = level_footprint(row, l0, u, v, wrap, row_elems, lc);
+    t.f1 = level_footprint(row, l0 + 1, u, v, wrap, row_elems, lc);
+    return t;
+}
+
+// Channel ch of a trilinear tap: the two levels' bilinear lerps, blended
+// by the lod's fraction.
+__device__ __forceinline__ float trilinear_lerp(const uint16_t* q, const Trilinear& t,
+                                                int stride, int ch) {
+    const float v0 = lerp4(q, t.f0.base, stride, ch, t.f0.fx, t.f0.fy);
+    const float v1 = lerp4(q, t.f1.base, stride, ch, t.f1.fx, t.f1.fy);
+    return v0 + (v1 - v0) * t.frac;
 }
 
 // The layer class of a meta row: its layer count when the pool has that

@@ -13,15 +13,14 @@
 // Bound: memory latency of 2 scattered 16-texel block reads per pixel
 // (8 B per layer-channel texel pair, mostly L2 hits for a coherent uv
 // field). The plain version is ops/texture.py::sample_bundle_rows; the
-// lerp order is its _lerp4's. The footprint and lerp are atlas_tap.cuh's,
-// shared with the closest-hit walk's alpha test.
+// lerp order is its _lerp4's. The trilinear tap is atlas_tap.cuh's,
+// shared with kernel 6's alpha form (and its footprint with the
+// closest-hit walk's alpha test).
 #include "atlas_tap.cuh"
 
 namespace {
 
-using trt::Footprint;
-using trt::lerp4;
-using trt::level_footprint;
+using trt::Trilinear;
 
 __global__ void tap_finish_kernel(const uint16_t* __restrict__ quads, int row_elems,
                                   const int* __restrict__ rows, int meta_stride,
@@ -32,24 +31,13 @@ __global__ void tap_finish_kernel(const uint16_t* __restrict__ quads, int row_el
     if (i >= m) return;
     const int* row = rows + (size_t)i * meta_stride;
     const int lc = trt::layer_class(row, class_mask);
-    float lod = lod_in[i];
-    lod = lod < 0.0f ? 0.0f : lod;
-    const float l0f = floorf(lod);
-    const int l0 = (int)l0f;
-    const float frac = lod - (float)l0;
     const float u = uv[2 * (size_t)i], v = uv[2 * (size_t)i + 1];
-    const Footprint f0 = level_footprint(row, l0, u, v, wrap, row_elems, lc);
-    const Footprint f1 = level_footprint(row, l0 + 1, u, v, wrap, row_elems, lc);
+    const Trilinear t = trt::trilinear_footprint(row, lod_in[i], u, v, wrap, row_elems, lc);
     const int stride = 4 * lc;  // texel stride inside a block
     for (int layer = 0; layer < l_max; ++layer) {
         for (int c = 0; c < 4; ++c) {
-            float val = 0.0f;
-            if (layer < lc) {
-                const int ch = 4 * layer + c;
-                const float v0 = lerp4(quads, f0.base, stride, ch, f0.fx, f0.fy);
-                const float v1 = lerp4(quads, f1.base, stride, ch, f1.fx, f1.fy);
-                val = v0 + (v1 - v0) * frac;
-            }
+            const float val = layer < lc ? trt::trilinear_lerp(quads, t, stride, 4 * layer + c)
+                                         : 0.0f;
             out[(size_t)(4 * layer + c) * m + i] = val;
         }
     }

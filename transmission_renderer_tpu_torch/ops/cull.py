@@ -33,8 +33,11 @@ def frustum_planes_from_projection(perspective: np.ndarray):
 
 
 def _mat_rows(points: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """[N, 4] homogeneous points -> [N, 4] = points @ mat.T (full f32)."""
-    return points @ mat.T
+    """[N, 4] homogeneous points -> [N, 4] = points @ mat.T in float32,
+    summed as the reference's compiled dot sums (p0 + p1) + (p2 + p3):
+    bit-equal clip positions, as similarity_apply's world positions."""
+    p = points[:, :, None] * mat.T[None]  # [N, k, j] = points[n, k] * mat[j, k]
+    return (p[:, 0] + p[:, 1]) + (p[:, 2] + p[:, 3])
 
 
 def cull_instances(

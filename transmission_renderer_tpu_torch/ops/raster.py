@@ -24,6 +24,10 @@ from typing import NamedTuple
 
 import torch
 
+from transmission_renderer_tpu_torch.render import checks
+
+BIN_GATHER_SITE = ("ops/raster.py::bin_triangles_materialized: a tile's list slot past "
+                   "the sorted pairs")
 
 class TriangleSetup(NamedTuple):
     """Per-triangle rasterisation constants (all [T, ...])."""
@@ -306,9 +310,13 @@ def bin_triangles_materialized(
     raw_counts = tile_start[1:] - tile_start[:-1]
     counts = torch.clamp(raw_counts, max=max_tris_per_tile)
     slot = torch.arange(max_tris_per_tile, device=dev)
-    gather = torch.clamp(tile_start[:-1, None].long() + slot[None, :], 0,
-                         sorted_tris.shape[0] - 1)
-    tile_tri_ids = torch.where(slot[None, :] < counts[:, None], sorted_tris[gather], -1)
+    gather = tile_start[:-1, None].long() + slot[None, :]
+    in_range = slot[None, :] < counts[:, None]
+    # slots past a tile's count read a clamped row and are dropped; under
+    # checks a counted slot past the pairs is reported
+    gather = torch.clamp(checks.index(gather, sorted_tris.shape[0], BIN_GATHER_SITE,
+                                      used=in_range), 0, sorted_tris.shape[0] - 1)
+    tile_tri_ids = torch.where(in_range, sorted_tris[gather], -1)
 
     # big list: the is_big ids in ascending order (a stable sort puts them
     # first), -1 past their number, cut or padded to max_big_tris

@@ -23,6 +23,16 @@ for CPU tensors, in one of two orders:
 The two orders pick different triangles on exact depth ties across the
 big list and the binned run, so the order is a parameter, not one rule.
 
+In XLA-raster order the raster can also take the reference's alpha test
+(``alpha_coverage_fn``, raster.py:556-561, built by
+render/frame.py::_make_alpha_fn): a ``VisAlpha`` of tensors, so that the
+kernel reads the same data. A covered fragment in the depth range is then
+dropped where ``alpha_keep`` says its diffuse alpha is below the cutoff.
+The kill does not depend on the walk order, so both the kernel and the
+plain version tap only the fragments that would beat their current best,
+which gives the same winners. The kernel-6 order (the reference's Pallas
+kernel) has no alpha test.
+
 In both orders the winner is a maximum over the records strictly deeper
 than the seed: of (depth, -list position) in kernel-6 order, whose list
 is the big list then the run, and of (depth, -triangle id) in XLA order.
@@ -50,6 +60,9 @@ row of its own.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from transmission_renderer_tpu_torch import kernels
@@ -62,6 +75,15 @@ from transmission_renderer_tpu_torch.ops.raster import (
     untile_image,
 )
 from transmission_renderer_tpu_torch.ops.raster_gbuf import _pixel_ndc, work_items
+from transmission_renderer_tpu_torch.ops.texture import (
+    WRAP_REPEAT,
+    atlas_classes,
+    class_mask,
+    sample_texture_rows,
+)
+from transmission_renderer_tpu_torch.render import checks
+from transmission_renderer_tpu_torch.render.shading import _mip_lod
+from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, LAYER_SHIFT, META_COLS
 
 TILE_H = 8
 TILE_W = 128
@@ -74,6 +96,108 @@ MAX_TILE_PX = 1024  # the kernel's race tests 4 pixels a thread, 256 threads a b
 # took 0.282, 0.296 and 0.337 ms at 32, 64 and 128: PERF.md, Findings)
 SEG = 32
 KEY_ID_MASK = 0xFFFFFFFF
+# the indices the checked form tests, by bit of its error word (the plain
+# version reports its own through render/checks.py::index at the same sites)
+CHECK_SITES = {
+    0: "kernel 6 (ops/raster_vis.py): a run's record row past the records",
+    1: "kernel 6 (ops/raster_vis.py): a big-list record row past the big list",
+    2: "kernel 6 (ops/raster_vis.py): a seed depth past the seed tiles",
+    3: "kernel 6 (ops/raster_vis.py): a triangle id past the triangles",
+    4: "kernel 6 (ops/raster_vis.py): a material id past the materials",
+    5: "kernel 6 (ops/raster_vis.py): a diffuse texture's atlas image past the atlas meta",
+    6: "kernel 6 (ops/raster_vis.py): an alpha tap's texel past the atlas",
+}
+
+
+class VisAlpha(NamedTuple):
+    """What the raster's alpha test reads (render/frame.py::vis_alpha
+    builds it): per triangle a side table (the 16-float record stays as it
+    is), per material its diffuse texture and factors, and the atlas."""
+
+    tri_clip: torch.Tensor  # [T] int32, 1: bucket ALPHA_CLIP or TRANSMISSION_ALPHA_CLIP
+    tri_material: torch.Tensor  # [T] int32
+    tri_uv: torch.Tensor  # [T, 6] float32, the three expanded vertex uvs
+    tex_diffuse: torch.Tensor  # [M] int32 packed refs, -1: none
+    alpha_factor: torch.Tensor  # [M] float32 diffuse_factor[:, 3]
+    cutoff: torch.Tensor  # [M] float32 alpha_clipping_cutoff
+    atlas_texels: torch.Tensor  # [R, row_elems] bfloat16
+    atlas_meta: torch.Tensor  # [images, META_COLS + class tag] int32
+
+
+def alpha_tap(alpha: VisAlpha, f, e, width: int, height: int) -> tuple:
+    """Where the alpha test taps the atlas for the fragments whose record
+    float i is f(i) ([N] each) at the pixels of their edge functions e ->
+    (triangle id, material id, diffuse ref, meta rows [N, META_COLS], uv
+    [N, 2], lod): the uv, e . uv / sum(e), and its analytic derivatives
+    with the 2/width and 2/height factors (render/frame.py::_make_alpha_fn),
+    and the implicit LOD (render/shading.py::_mip_lod). Every operation
+    rounds on its own, as in the kernel (built with --fmad=false); the
+    edge functions are the raster's own."""
+    tri = checks.index((f(15).to(torch.int32) & (CLASS_BIT - 1)).long(),
+                       alpha.tri_clip.shape[0], CHECK_SITES[3])
+    mid = checks.index(alpha.tri_material[tri].long(), alpha.tex_diffuse.shape[0],
+                       CHECK_SITES[4])
+    tid = alpha.tex_diffuse[mid]
+    img = checks.index((torch.clamp(tid, min=0) & IMAGE_MASK).long(),
+                       alpha.atlas_meta.shape[0], CHECK_SITES[5], used=tid >= 0)
+    rows = alpha.atlas_meta[img][..., :META_COLS]
+    t = alpha.tri_uv[tri]
+    e0, e1, e2 = e
+    a0, b0, a1, b1, a2, b2 = f(0), f(1), f(3), f(4), f(6), f(7)
+    d_sum = e0 + e1 + e2
+    inv_d = 1.0 / d_sum
+    a_sum = a0 + a1 + a2
+    b_sum = b0 + b1 + b2
+    inv_d2x = inv_d * inv_d * (2.0 / width)
+    inv_d2y = inv_d * inv_d * (2.0 / height)
+    uv, dx, dy = [], [], []
+    for c in (0, 1):
+        u0, u1, u2 = t[:, c], t[:, 2 + c], t[:, 4 + c]
+        n = e0 * u0 + e1 * u1 + e2 * u2
+        na = a0 * u0 + a1 * u1 + a2 * u2
+        nb = b0 * u0 + b1 * u1 + b2 * u2
+        uv.append(n * inv_d)
+        dx.append((na * d_sum - n * a_sum) * inv_d2x)
+        dy.append((nb * d_sum - n * b_sum) * inv_d2y)
+    lod = _mip_lod(torch.stack(dx, -1), torch.stack(dy, -1), rows[..., 2], rows[..., 3])
+    return tri, mid, tid, rows, torch.stack(uv, -1), lod
+
+
+def alpha_test(alpha: VisAlpha, f, e, width: int, height: int) -> tuple:
+    """The reference's alpha test (render/frame.py::_make_alpha_fn) of the
+    fragments of ``alpha_tap`` -> (whether the triangle is in a clip
+    bucket, the alpha, the material's cutoff), each [N]: the trilinear
+    REPEAT tap of the diffuse alpha at alpha_tap's uv and lod, times the
+    factor (the factor alone without a texture)."""
+    tri, mid, tid, rows, uv, lod = alpha_tap(alpha, f, e, width, height)
+    classes = atlas_classes(alpha.atlas_meta)
+    layer = (torch.clamp(tid, min=0) >> LAYER_SHIFT) if max(classes) > 1 else None
+    s = sample_texture_rows(alpha.atlas_texels, rows, uv, lod, WRAP_REPEAT, classes, layer=layer)
+    value = alpha.alpha_factor[mid] * torch.where(tid >= 0, s[..., 3], 1.0)
+    return alpha.tri_clip[tri] != 0, value, alpha.cutoff[mid]
+
+
+def alpha_keep(alpha: VisAlpha, f, e, width: int, height: int) -> torch.Tensor:
+    """[N] bool, True where a fragment stays: alpha_test's alpha reaches
+    the cutoff, or the triangle is not in a clip bucket."""
+    clip, value, cutoff = alpha_test(alpha, f, e, width, height)
+    return ~clip | (value >= cutoff)
+
+
+def _alpha_gate(alpha: VisAlpha, win: torch.Tensor, rec: torch.Tensor, e, width: int,
+                height: int) -> torch.Tensor:
+    """``win`` ([A, th, tw]: the fragments of records rec [A or 1, 16] that
+    would beat the current best) with the alpha test's kills removed; only
+    those fragments are tapped."""
+    at = torch.nonzero(win, as_tuple=True)
+    if at[0].numel() == 0:
+        return win
+    r = rec[at[0]] if rec.shape[0] > 1 else rec.expand(at[0].numel(), -1)
+    keep = alpha_keep(alpha, lambda i: r[:, i], [x.expand(win.shape)[at] for x in e],
+                      width, height)
+    win = win.clone()
+    win[at] = keep
+    return win
 
 
 def pack_payload(setup: TriangleSetup, class_flags: torch.Tensor | None = None
@@ -168,9 +292,18 @@ def list_lengths(run_count: torch.Tensor, big_count: torch.Tensor) -> torch.Tens
     return big_count.long()[0] + run_count.long()
 
 
-def _list_rows(run_start, slot, v, nbig):
-    """Row of list position v of ``slot`` in cat([big[:nbig], records])."""
-    return torch.where(v < nbig, v, run_start.long()[slot] + v)
+def _list_rows(run_start, slot, v, nbig, n_big_rows, n_records, used=None):
+    """Row of list position v of ``slot`` in cat([big, records]) (big:
+    [n_big_rows, 16], of which the list walks nbig), each checked against
+    its array (render/checks.py::index) where ``used``."""
+    is_big = v < nbig
+    is_run = ~is_big
+    if used is not None:
+        is_big, is_run = is_big & used, is_run & used
+    big_row = checks.index(v, n_big_rows, CHECK_SITES[1], used=is_big)
+    run_row = checks.index(run_start.long()[slot] + v - nbig, n_records, CHECK_SITES[0],
+                           used=is_run)
+    return torch.where(v < nbig, big_row, n_big_rows + run_row)
 
 
 def raster_vis_plain(
@@ -187,6 +320,7 @@ def raster_vis_plain(
     pass_class: int | None = None,
     xla_order: bool = True,
     segment: int | None = None,
+    alpha: VisAlpha | None = None,
 ) -> tuple:
     """The visibility raster in plain PyTorch -> (tri [K, th, tw] int32,
     depth, b1, b2); each record's arithmetic is the kernel's (see the
@@ -194,7 +328,10 @@ def raster_vis_plain(
     record rank per step, in the order's walk; with ``segment`` set each
     segment of at most that many records of a tile's list is raced on its
     own, the winners merge by their key and each pixel's winner is
-    resolved once, as the kernel does. Both give the same bits."""
+    resolved once, as the kernel does. Both give the same bits. ``alpha``
+    (XLA order only) adds the alpha test."""
+    if alpha is not None and not xla_order:
+        raise ValueError("the alpha test is the XLA-raster order's (kernel-6 order has none)")
     records, big = payload[0], payload[1]
     dev = records.device
     k_tiles = tile_ids.shape[0]
@@ -204,7 +341,7 @@ def raster_vis_plain(
             else torch.zeros(shape, dtype=torch.float32, device=dev))
     if segment is not None:
         return _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
-                          pass_class, xla_order, segment)
+                          pass_class, xla_order, segment, alpha, width, height)
 
     best_tri = torch.full(shape, -1, dtype=torch.int32, device=dev)
     best_depth = seed
@@ -221,6 +358,8 @@ def raster_vis_plain(
             win = inside & ((depth > bd) | ((depth == bd) & (tri < bt)))
         else:
             win = inside & (depth > bd)
+        if alpha is not None:
+            win = _alpha_gate(alpha, win, rec, e, width, height)
         nb1, nb2 = _barycentrics(e, xla_order)
         best_tri[act] = torch.where(win, tri, bt)
         best_b1[act] = torch.where(win, nb1, best_b1[act])
@@ -233,11 +372,13 @@ def raster_vis_plain(
         start = run_start.long()
         for j in range(int(run_count.max()) if k_tiles else 0):
             act = torch.nonzero(run_count > j)[:, 0]
-            race(records[start[act] + j], act)
+            race(records[checks.index(start[act] + j, records.shape[0], CHECK_SITES[0])], act)
 
     def walk_big():
-        for j in range(int(big_count[0])):
-            race(big[j : j + 1], everyone)
+        rows = big[checks.index(torch.arange(int(big_count[0]), device=dev), big.shape[0],
+                                CHECK_SITES[1])]
+        for j in range(rows.shape[0]):
+            race(rows[j : j + 1], everyone)
 
     if xla_order:
         walk_runs()
@@ -249,7 +390,7 @@ def raster_vis_plain(
 
 
 def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed, pass_class,
-               xla_order, segment) -> tuple:
+               xla_order, segment, alpha=None, width=0, height=0) -> tuple:
     """raster_vis_plain's segmented race: each work item (a tile slot's
     list segment) raced from the seed by the order's rule, the winners
     merged per pixel by the key (float bits of depth + 0 << 32) | (2^32 -
@@ -259,7 +400,8 @@ def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
     records, big, rows = payload
     dev = records.device
     nbig = int(big_count[0])
-    recs = torch.cat([big[:nbig], records])
+    recs = torch.cat([big, records])  # row nb + r: records[r]
+    nb = big.shape[0]
     lengths = list_lengths(run_count, big_count)
     slot, begin, end = work_items(torch.zeros_like(lengths), lengths, segment)
     best = seed[slot].clone()
@@ -267,14 +409,17 @@ def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
     for j in range(int((end - begin).max()) if slot.numel() else 0):
         act = torch.nonzero(end - begin > j)[:, 0]
         v = begin[act] + j
-        r = recs[_list_rows(run_start, slot[act], v, nbig)]
+        r = recs[_list_rows(run_start, slot[act], v, nbig, nb, records.shape[0])]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
-        inside, depth, tri = _race_test(f, _edges(f, nx[slot[act]], ny[slot[act]]), pass_class)
+        e = _edges(f, nx[slot[act]], ny[slot[act]])
+        inside, depth, tri = _race_test(f, e, pass_class)
         idv = tri.long() if xla_order else v[:, None, None]
         bd, bi = best[act], best_id[act]
         win = inside & (depth > bd)
         if xla_order:
             win |= inside & (depth == bd) & (idv < bi)
+        if alpha is not None:
+            win = _alpha_gate(alpha, win, r, e, width, height)
         best[act] = torch.where(win, depth, bd)
         best_id[act] = torch.where(win, idv, bi)
     bits = (best + 0.0).view(torch.int32).to(torch.int64)
@@ -290,7 +435,8 @@ def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
     else:
         k = torch.arange(seed.shape[0], device=dev)[:, None, None].expand_as(wid)
         rw = torch.cat([recs, rows[-1:]])[  # no winner: the degenerate row
-            torch.where(won, _list_rows(run_start, k, wid, nbig), recs.shape[0])]
+            torch.where(won, _list_rows(run_start, k, wid, nbig, nb, records.shape[0], won),
+                        recs.shape[0])]
     f = lambda i: rw[..., i]  # noqa: E731
     e = _edges(f, nx, ny)
     b1, b2 = _barycentrics(e, xla_order)
@@ -307,14 +453,15 @@ def covered_pairs(payload, tile_ids, run_start, run_count, big_count, width, hei
     functions to the depth, the rest of its work per pair."""
     records, big = payload[0], payload[1]
     nbig = int(big_count[0])
-    recs = torch.cat([big[:nbig], records])
+    recs = torch.cat([big, records])
     slot, v, _ = work_items(torch.zeros_like(run_count.long()),
                             list_lengths(run_count, big_count), 1)
     nx, ny = _pixel_ndc(tile_ids, width, height, tile_w, tile_h)
     total = 0
     for s in range(0, slot.shape[0], chunk):
         sl = slot[s : s + chunk]
-        r = recs[_list_rows(run_start, sl, v[s : s + chunk], nbig)]
+        r = recs[_list_rows(run_start, sl, v[s : s + chunk], nbig, big.shape[0],
+                            records.shape[0])]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
         total += int(_covers(f, _edges(f, nx[sl], ny[sl]), pass_class).sum())
     return total
@@ -322,24 +469,51 @@ def covered_pairs(payload, tile_ids, run_start, run_count, big_count, width, hei
 
 def _raster_vis_cuda(payload, tile_ids, run_start, run_count, big_count, width, height,
                      tile_w, tile_h, init_depth_tiles=None, pass_class=None,
-                     xla_order=True) -> tuple:
+                     xla_order=True, alpha=None) -> tuple:
     return _raster_vis_launch(payload, tile_ids, run_start, run_count, big_count, width,
                               height, tile_w, tile_h, init_depth_tiles, pass_class,
-                              xla_order)[0]
+                              xla_order, alpha)[0]
+
+
+def _alpha_args(alpha: VisAlpha, dev) -> tuple:
+    """(pointer array, dims array) of the alpha form's C arguments."""
+    n_tris, n_mat = alpha.tri_clip.shape[0], alpha.tex_diffuse.shape[0]
+    for t, name, dtype, shape in (
+            (alpha.tri_clip, "clip flags", torch.int32, (n_tris,)),
+            (alpha.tri_material, "triangle materials", torch.int32, (n_tris,)),
+            (alpha.tri_uv, "triangle uvs", torch.float32, (n_tris, 6)),
+            (alpha.tex_diffuse, "diffuse refs", torch.int32, (n_mat,)),
+            (alpha.alpha_factor, "alpha factors", torch.float32, (n_mat,)),
+            (alpha.cutoff, "alpha cutoffs", torch.float32, (n_mat,)),
+            (alpha.atlas_texels, "atlas texels", torch.bfloat16, None),
+            (alpha.atlas_meta, "atlas meta", torch.int32, None)):
+        kernels.check(t, name, dtype, shape, device=dev)
+    classes = atlas_classes(alpha.atlas_meta)
+    n_texels = alpha.atlas_texels.numel()
+    ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in alpha))
+    dims = (ctypes.c_int * 9)(n_tris, n_mat, alpha.atlas_meta.shape[0],
+                              alpha.atlas_meta.shape[1], alpha.atlas_texels.shape[-1],
+                              class_mask(classes), max(classes), n_texels >> 31,
+                              n_texels & (2**31 - 1))
+    return ptrs, dims
 
 
 def _raster_vis_launch(payload, tile_ids, run_start, run_count, big_count, width, height,
                        tile_w, tile_h, init_depth_tiles=None, pass_class=None,
-                       xla_order=True) -> tuple:
+                       xla_order=True, alpha=None) -> tuple:
     """Launch kernel 6 -> ((tri, depth, b1, b2), the int64 buffer it worked
     in: the per-pixel keys, then the plan, whose words the CUDA tests
-    read)."""
+    read). ``alpha`` takes the alpha form; under checks
+    (render/checks.py) the checked form runs and its error word is
+    reported after the frame."""
     records, big, rows = payload
     dev = records.device
     k_tiles = tile_ids.shape[0]
     if tile_w * tile_h > MAX_TILE_PX:
         raise ValueError(f"{tile_w}x{tile_h} tiles: the kernel takes at most "
                          f"{MAX_TILE_PX} pixels a tile")
+    if alpha is not None and not xla_order:
+        raise ValueError("the alpha test is the XLA-raster order's (kernel-6 order has none)")
     kernels.check(records, "records", torch.float32, (records.shape[0], REC_F32), align=16)
     kernels.check(big, "big records", torch.float32, (big.shape[0], REC_F32), device=dev,
                   align=16)
@@ -357,12 +531,18 @@ def _raster_vis_launch(payload, tile_ids, run_start, run_count, big_count, width
     # the merge key of every pixel (0: no winner), then the race's work
     # list, which the kernel builds (2 + 2K int32 in K + 1 more words)
     keys = torch.zeros(k_tiles * (tile_w * tile_h + 1) + 1, dtype=torch.int64, device=dev)
+    ptrs, dims = _alpha_args(alpha, dev) if alpha is not None else (None, None)
+    err = bounds = None
+    if checks.active():
+        err = torch.zeros(1, dtype=torch.int32, device=dev)
+        n_init = init_depth_tiles.numel() if init_depth_tiles is not None else 0
+        bounds = (ctypes.c_longlong * 4)(records.shape[0], big.shape[0], rows.shape[0], n_init)
+    p = kernels.VOIDP
     fn = kernels.entry("trt_raster_vis", [
-        kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
-        kernels.VOIDP, kernels.VOIDP, kernels.VOIDP, kernels.INT, kernels.INT,
-        kernels.INT, kernels.INT, kernels.FLOAT, kernels.FLOAT, kernels.INT,
-        kernels.INT, kernels.INT, kernels.VOIDP, kernels.VOIDP, kernels.VOIDP,
-        kernels.VOIDP, kernels.VOIDP,
+        p, p, p, p, p, p, p, p, kernels.INT, kernels.INT, kernels.INT, kernels.INT,
+        kernels.FLOAT, kernels.FLOAT, kernels.INT, kernels.INT, kernels.INT, p, p, p, p, p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_longlong), p,
     ])
     kernels.launch(
         KERNEL, fn, kernels.ptr(records), kernels.ptr(big), kernels.ptr(rows),
@@ -371,8 +551,10 @@ def _raster_vis_launch(payload, tile_ids, run_start, run_count, big_count, width
         -(-width // tile_w), tile_w, tile_h, 2.0 / width, 2.0 / height,
         -1 if pass_class is None else int(pass_class), int(xla_order), SEG,
         kernels.ptr(keys), kernels.ptr(tri), kernels.ptr(depth), kernels.ptr(b1),
-        kernels.ptr(b2),
+        kernels.ptr(b2), ptrs, dims, bounds, kernels.ptr(err),
     )
+    if err is not None:
+        checks.report_word(err, CHECK_SITES)
     return (tri, depth, b1, b2), keys
 
 
@@ -385,12 +567,14 @@ KERNEL = kernels.KernelHandle(
 
 def raster_vis(payload, tile_ids, run_start, run_count, big_count, width, height,
                tile_w, tile_h, init_depth_tiles=None, pass_class=None,
-               xla_order=True) -> tuple:
+               xla_order=True, alpha=None) -> tuple:
     """Kernel 6 (plain version for CPU tensors): see raster_vis_plain."""
+    # a call without alpha records the keywords it recorded before
+    kw = {} if alpha is None else {"alpha": alpha}
     return KERNEL(payload[0].is_cuda, payload, tile_ids, run_start, run_count,
                   big_count, width, height, tile_w, tile_h,
                   init_depth_tiles=init_depth_tiles, pass_class=pass_class,
-                  xla_order=xla_order)
+                  xla_order=xla_order, **kw)
 
 
 def _untiled(outs, width, height, tile_w, tile_h) -> VisibilityBuffer:
@@ -463,31 +647,33 @@ def rasterize_tilelist(
     tile_h: int,
     init_depth_tiles: torch.Tensor | None = None,  # [K, tile_h, tile_w]
     payload: tuple | None = None,
+    alpha: VisAlpha | None = None,
 ) -> tuple:
     """Rasterise a list of tiles in XLA-raster order -> (tri, depth, b1,
     b2), each [K, tile_h, tile_w]. Each tile walks the first
     ``tile_tri_count`` records of its sorted run (its materialised list),
-    then the big list."""
+    then the big list; ``alpha`` adds the alpha test."""
     payload = payload if payload is not None else gather_bin_payload(setup, bins)
     tid = tile_indices.long()
     big_count = bins.big_tri_count.to(torch.int32).reshape(1)
     return raster_vis(payload, tile_indices.contiguous(),
                       bins.tile_start[tid].contiguous(),
                       bins.tile_tri_count[tid].contiguous(), big_count, width, height,
-                      tile_w, tile_h, init_depth_tiles=init_depth_tiles, xla_order=True)
+                      tile_w, tile_h, init_depth_tiles=init_depth_tiles, xla_order=True,
+                      alpha=alpha)
 
 
 def rasterize(setup: TriangleSetup, bins: TileBins, width: int, height: int,
               tile_w: int, tile_h: int, init_depth: torch.Tensor | None = None,
-              payload: tuple | None = None) -> VisibilityBuffer:
+              payload: tuple | None = None, alpha: VisAlpha | None = None) -> VisibilityBuffer:
     """Rasterise every tile (XLA-raster order) into a visibility buffer;
     ``init_depth`` ([H, W]) seeds the depth race with an existing
-    surface. Alpha-clip coverage (the reference's ``alpha_coverage_fn``)
-    is not part of this raster."""
+    surface; ``alpha`` kills alpha-clip fragments in the race (the
+    reference's ``alpha_coverage_fn``)."""
     n_tiles = -(-width // tile_w) * -(-height // tile_h)
     tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=setup.adj.device)
     init = (tile_image(init_depth, tile_w, tile_h).contiguous()
             if init_depth is not None else None)
     outs = rasterize_tilelist(setup, bins, tile_ids, width, height, tile_w, tile_h,
-                              init_depth_tiles=init, payload=payload)
+                              init_depth_tiles=init, payload=payload, alpha=alpha)
     return _untiled(outs, width, height, tile_w, tile_h)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from transmission_renderer_tpu_torch.render import checks
 from transmission_renderer_tpu_torch.scene.textures import (  # noqa: F401
     BLOCK_TEXELS,
     IMAGE_MASK,
@@ -34,6 +35,9 @@ from transmission_renderer_tpu_torch.scene.textures import (  # noqa: F401
     WRAP_CLAMP,
     WRAP_REPEAT,
 )
+
+
+TEXEL_SITE = "ops/texture.py::_fetch_block: a tap's texel past the atlas"
 
 
 def atlas_classes(meta: torch.Tensor) -> tuple:
@@ -131,7 +135,7 @@ def _fetch_block(quads, qoff, width, height, uv, wrap_mode, classes, layers_pix)
         sub = qidx & (g - 1)
         base = row_idx.long() * row_elems + (sub * blkw).long()
         idx = base[..., None] + torch.arange(blkw, device=quads.device)
-        blk = flat[idx]
+        blk = flat[checks.index(idx, flat.numel(), TEXEL_SITE)]
         if lc < l_max:
             zeros = blk.new_zeros(blk.shape[:-1] + (4 * (l_max - lc),))
             parts = []

@@ -7,8 +7,9 @@ refraction_level_set, FrameDiagnostics, FrameParams, make_frame_params,
 _static_cluster_data, _class_tile_worklist, _tile_cap, _gather_gbuffer,
 the alpha-clip depth peel (_clip_alpha_ok_tiles, _merge_gbuffers,
 _default_gbuf_channels, _scatter_tile_channels, _rasterize_class_sparse,
-_rasterize_clip_peeled) and render_frame, on both raster branches of
-the reference:
+_rasterize_clip_peeled), the in-raster alpha test's inputs (vis_alpha,
+for _make_alpha_fn) and render_frame, on both raster branches of the
+reference:
 
 - the G-buffer kernel branch (the flagship on the card; frame.py:1073-1158):
   class-split binning (four draw classes with alpha clip), the G-buffer
@@ -28,7 +29,9 @@ the reference:
   default on the CPU or with tiles other than 8x128; frame.py:1055-1064,
   1159-1166, 1457-1463, 1470-1600): per pass a setup, materialised bins
   capped at ``max_tris_per_tile``, the visibility raster (kernel 6 in
-  XLA-raster order) and interpolate_gbuffer; the opaque shade dense, the
+  XLA-raster order, with alpha clip its alpha form, which kills a
+  clip-bucket fragment below its cutoff inside the depth race:
+  frame.py:1004-1006) and interpolate_gbuffer; the opaque shade dense, the
   transmissive raster seeded with the opaque depth, the transmission
   shade over a compacted block worklist (or dense), through the tensor
   shading path unless ``pallas_shade`` asks for the kernels.
@@ -42,8 +45,7 @@ pyramid (no level set); and the quality flags (``half_res_refraction``,
 sends to the tensor shade. A pass shades through the kernels only at
 widths that are multiples of 128 (single-row 128-px blocks).
 
-Three branches raise NotImplementedError, saying why: alpha clip on the
-visibility-buffer branch (ROADMAP queue 1, item 6a), the G-buffer kernel
+Two branches raise NotImplementedError, saying why: the G-buffer kernel
 with tiles other than its fixed 8x128, and pair-stream compaction (left
 out of the port). The port never takes a silent detour.
 """
@@ -89,7 +91,11 @@ from transmission_renderer_tpu_torch.ops.raster_gbuf import (
     rasterize_gbuffer_pallas,
     rasterize_gbuffer_tiles,
 )
-from transmission_renderer_tpu_torch.ops.raster_vis import gather_bin_payload, rasterize
+from transmission_renderer_tpu_torch.ops.raster_vis import (
+    VisAlpha,
+    gather_bin_payload,
+    rasterize,
+)
 from transmission_renderer_tpu_torch.ops.texture import (
     WRAP_REPEAT,
     atlas_classes,
@@ -457,9 +463,6 @@ def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool) -> 
         raise NotImplementedError(f"{what}: {why}")
 
     if not use_pallas:
-        if flags.has_alpha_clip:
-            refuse("alpha clip in the visibility raster (alpha_coverage_fn)",
-                   "ROADMAP queue 1, item 6a (visibility-buffer alpha clip)")
         return
     if (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
         refuse(f"the G-buffer kernel with {config.tile_h}x{config.tile_w} tiles",
@@ -509,6 +512,30 @@ def _clip_alpha_ok_tiles(scene: Scene, ch: dict) -> torch.Tensor:
         )
         alpha = m.diffuse_factor[mat, 3] * torch.where(tid >= 0, s[..., 3], 1.0)
         return (ch["tri"] < 0) | (alpha >= m.alpha_clipping_cutoff[mat])
+
+
+def vis_alpha(scene: Scene, dl: DrawList, uvs: torch.Tensor) -> VisAlpha:
+    """The visibility raster's alpha test inputs (the reference's
+    _make_alpha_fn, frame.py:886-954) from the scene, the draw list and
+    the expanded uvs: per triangle whether it is in a clip bucket, its
+    material and its three vertex uvs; per material the diffuse ref, alpha
+    factor and cutoff; the atlas. The test itself is
+    ops/raster_vis.py::alpha_keep, which computes what
+    _clip_alpha_ok_tiles does on the kernel branch (the uv derivatives of
+    the same closed forms, _mip_lod, the trilinear REPEAT tap, alpha >=
+    cutoff), at each fragment of the race instead of at the winners."""
+    m = scene.materials
+    clip = (dl.tri_bucket == BUCKET_ALPHA_CLIP) | (dl.tri_bucket == BUCKET_TRANSMISSION_ALPHA_CLIP)
+    return VisAlpha(
+        tri_clip=clip.to(torch.int32).contiguous(),
+        tri_material=dl.tri_material.to(torch.int32).contiguous(),
+        tri_uv=uvs[dl.tri_vtx.long()].reshape(-1, 6).contiguous(),
+        tex_diffuse=m.tex_diffuse.to(torch.int32).contiguous(),
+        alpha_factor=m.diffuse_factor[:, 3].contiguous(),
+        cutoff=m.alpha_clipping_cutoff.contiguous(),
+        atlas_texels=scene.atlas_texels.contiguous(),
+        atlas_meta=scene.atlas_meta.contiguous(),
+    )
 
 
 def _merge_gbuffers(base: GBuffer, top: GBuffer) -> GBuffer:
@@ -676,11 +703,12 @@ def _block_coords(wk: BlockWork, w: int):
 
 
 def _visibility_pass(clip, dl: DrawList, mask, tri_scale, world_pos, world_nrm, uvs,
-                     config: RenderConfig, raster_pass: str, init_depth=None):
+                     config: RenderConfig, raster_pass: str, init_depth=None, alpha=None):
     """One raster pass of the visibility-buffer branch (frame.py:1055-1064
     with interpolate_gbuffer): setup over the pass's triangles,
     materialised binning, kernel 6 in XLA-raster order seeded with
-    ``init_depth``, then the G-buffer -> (GBuffer [H, W], TileBins)."""
+    ``init_depth`` (its alpha form with ``alpha``), then the G-buffer ->
+    (GBuffer [H, W], TileBins)."""
     w, h, tw, th = config.width, config.height, config.tile_w, config.tile_h
     with pass_scope("binning"):
         setup = setup_triangles(clip, dl.tri_vtx, mask, w, h, tw, th)
@@ -690,7 +718,8 @@ def _visibility_pass(clip, dl: DrawList, mask, tri_scale, world_pos, world_nrm, 
     with pass_scope("payload"):
         payload = gather_bin_payload(setup, bins)
     with pass_scope(raster_pass):
-        vis = rasterize(setup, bins, w, h, tw, th, init_depth=init_depth, payload=payload)
+        vis = rasterize(setup, bins, w, h, tw, th, init_depth=init_depth, payload=payload,
+                        alpha=alpha)
         g = interpolate_gbuffer(vis, setup, dl.tri_vtx, dl.tri_material, tri_scale,
                                 world_pos, world_nrm, uvs, w, h)
     return g, bins
@@ -796,11 +825,13 @@ def render_frame(
                     pos_derivs=flags.tex_slots[2])
     else:
         # the visibility-buffer branch (frame.py:1159-1166): a setup and
-        # materialised bins per pass, kernel 6, interpolate_gbuffer
+        # materialised bins per pass, kernel 6 (with alpha clip its alpha
+        # form in both passes, frame.py:1004-1006), interpolate_gbuffer
+        alpha = vis_alpha(scene, dl, uvs) if flags.has_alpha_clip else None
         mask_o = bucket_triangle_masks(dl.tri_inst, dl.tri_bucket, visible,
                                        (BUCKET_OPAQUE, BUCKET_ALPHA_CLIP))
         g_o, bins_o = _visibility_pass(clip, dl, mask_o, tri_scale, world_pos,
-                                       world_nrm, uvs, config, "raster_opaque")
+                                       world_nrm, uvs, config, "raster_opaque", alpha=alpha)
 
     # ---- 3. clustered lighting --------------------------------------------
     coeffs, aabb_min, aabb_max = _static_cluster_data(config)
@@ -989,7 +1020,7 @@ def render_frame(
                 (BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP))
             g_t, bins_t = _visibility_pass(clip, dl, mask_t, tri_scale, world_pos,
                                            world_nrm, uvs, config, "raster_transmission",
-                                           init_depth=g_o.depth)
+                                           init_depth=g_o.depth, alpha=alpha)
         # a fraction of the blocks with a 256-block floor: at small frames
         # one 128-px block spans several rows, so coverage quantises up;
         # half-res refraction needs the dense shade's 2-D grid

@@ -67,6 +67,7 @@ from transmission_renderer_tpu_torch.pbr.brdf import (
 )
 from transmission_renderer_tpu_torch.pbr.clustering import ClusterCoefficients
 from transmission_renderer_tpu_torch.pbr.lights import Lights, spotlight_factor
+from transmission_renderer_tpu_torch.render import checks
 from transmission_renderer_tpu_torch.render.gbuffer import GBuffer
 from transmission_renderer_tpu_torch.render.shade_kernel import (
     _light_matrix,
@@ -174,6 +175,10 @@ _META_BLOCK = 5 + 2 * MAX_MIPS
 _META_W = 5 + MAX_MIPS
 
 
+MATERIAL_META_SITE = ("render/shading.py::build_material_matrix: a material texture's "
+                      "atlas image past the atlas meta")
+
+
 class MaterialMatrix(NamedTuple):
     table: torch.Tensor  # [n_mat, C] float32, inf-free
     meta_col: dict  # slot name -> column of its meta block (or None)
@@ -217,8 +222,9 @@ def build_material_matrix(scene: Scene, tex_slots: tuple,
         tid = getattr(m, name)
         for other in group:
             tid = torch.maximum(tid, getattr(m, other))
-        img = torch.clamp(tid, min=0) & IMAGE_MASK
-        rows = scene.atlas_meta[img.long()][:, :_META_W].to(torch.int32)
+        img = checks.index((torch.clamp(tid, min=0) & IMAGE_MASK).long(),
+                           scene.atlas_meta.shape[0], MATERIAL_META_SITE, used=tid >= 0)
+        rows = scene.atlas_meta[img][:, :_META_W].to(torch.int32)
         offs = rows[:, 4 : 4 + MAX_MIPS]
         cols.append(torch.cat([
             rows[:, :4].to(torch.float32),

@@ -82,8 +82,14 @@ class Similarity(NamedTuple):
 
 
 def similarity_apply(s: Similarity, v: torch.Tensor) -> torch.Tensor:
-    """s * vector = translation + scale * (rotation * v)."""
-    return s.translation + s.scale[..., None] * quat_rotate(s.rotation, v)
+    """s * vector = translation + scale * (rotation * v), as one fused
+    multiply-add, as the reference's compiler contracts it (the float32
+    product is exact in float64, so one float64 add and one rounding give
+    the fma): bit-equal world positions keep degenerate triangles'
+    backface decisions, and with them the bins, the reference's."""
+    f64 = torch.float64
+    r = quat_rotate(s.rotation, v)
+    return (s.scale[..., None].to(f64) * r.to(f64) + s.translation.to(f64)).to(r.dtype)
 
 
 # --------------------------------------------------------------------------

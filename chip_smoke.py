@@ -163,7 +163,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    finite image, one VALIDATION line, the sparse transmissive raster's
    tile overflow (MULTI_GLB_TRANSMISSION_TILES, the reference's own
    count, against the default cap of 507) and no other, kernel 1 bit for
-   bit against its plain version on the frame's calls; (f) --procedural dragon
+   bit against its plain version on the frame's calls
+   (check_multi_glb_run); (f) --procedural dragon
    --spotlights --rotate-model --frames 3: three PNGs, finite, frames 1
    and 2 differ from frame 0; (g) --procedural dragon --roughness-override
    0.25 --debug-checks: exit 0, no report, kernel 6 (its checked form)
@@ -209,6 +210,16 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    texture past the atlas through the checked frame, and a run start past
    the records through the checked kernel: both reported, and the process
    renders the same frame afterwards.
+14. glTF JPEG images (jpeg_phase, without PIL): (a)
+   utils/jpeg.py's decode_jpeg on each image of tests/assets/jpeg.glb
+   (multi.glb's scene with baseline 4:2:0 + restart markers, progressive
+   4:2:2 and greyscale JPEGs) gives PIL's RGBA by the SHA-256 and shape
+   in tests/assets/jpeg_digests.json; (b) jpeg.glb through cli.main at
+   its defaults with --check-nan, held as (e) holds multi.glb, its
+   launches equal to (e)'s; (c) that 1920x1080 frame equals bit for bit
+   the frame of its PNG twin (the same GLB with each image a PNG of its
+   decoded RGBA, written by utils/png.py); (d) each image's decode time
+   and seconds per megapixel, host time.
 
 The kernels JSON object reports every kernel on the widest path that
 launches it, named in its "frame" key: kernels 1-5 on the ray-traced
@@ -244,6 +255,7 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1005,7 +1017,7 @@ def stress_phase(card: str, max_err: dict) -> dict:
         f"{far.camera.pitch:.6f}")
 
     def frame(p=params, c=cfg, **kw):
-        return render_frame(scene, dl, p, lights, c, flags, **kw)
+        return render_frame(scene, dl, p, lights, c, flags=flags, **kw)
 
     handles = port_handles()[:4]
     # (a) every kernel call of the frame through the kernel and its plain
@@ -1216,7 +1228,7 @@ def vis_clip_phase(card: str, max_err: dict) -> dict:
     require(flags.has_alpha_clip, "the stress scene has alpha clip")
 
     def frame(**kw):
-        return render_frame(scene, dl, params, lights, cfg, flags, **kw)
+        return render_frame(scene, dl, params, lights, cfg, flags=flags, **kw)
 
     h = raster_vis.KERNEL
     handles = port_handles()
@@ -1307,7 +1319,7 @@ def vis_clip_phase(card: str, max_err: dict) -> dict:
     torch.cuda.synchronize()
     log(f"vis clip checked kernel 6, run start past the records: {found}")
     require((raster_vis.CHECK_SITES[0], None) in found, "the bad run start was not reported")
-    again = render_frame(scene, dl, params, lights, cfg, flags)
+    again = render_frame(scene, dl, params, lights, cfg, flags=flags)
     require(torch.equal(again, img), "the frame after the faults differs")
     log("vis clip: after the faults the process goes on and renders the same frame")
     return {"frame": "stress_vis", "launches": launches["raster_vis"],
@@ -1452,7 +1464,7 @@ def bench_scenes_phase(card: str, max_err: dict) -> tuple:
             f"{time.perf_counter() - t0:.2f} s, flags {flags}")
 
         def frame(p=params, c=cfg, **kw):
-            return render_frame(scene, dl, p, lights, c, flags, **kw)
+            return render_frame(scene, dl, p, lights, c, flags=flags, **kw)
 
         # (a) every kernel call of the frame through the kernel and its
         # plain version
@@ -1508,7 +1520,7 @@ def bench_scenes_phase(card: str, max_err: dict) -> tuple:
                 f"0.25 only)")
         else:
             s_scene, s_dl, s_flags, s_cfg, s_params, s_lights = bench_scene(name, dev, True)
-            small, s_diag = render_frame(s_scene, s_dl, s_params, s_lights, s_cfg, s_flags,
+            small, s_diag = render_frame(s_scene, s_dl, s_params, s_lights, s_cfg, flags=s_flags,
                                          return_diagnostics=True)
             golden = read_png(os.path.join(ROOT, "tests", "goldens", f"{name}.png"))
             golden = golden[..., :3] / 255.0
@@ -1552,6 +1564,76 @@ def bench_scenes_phase(card: str, max_err: dict) -> tuple:
 # count is the reference's own binning's
 # (tests/test_torch_cli.py::test_multi_glb_transmission_tiles_are_the_references).
 MULTI_GLB_TRANSMISSION_TILES = 592
+# the glTF JPEG fixture: multi.glb's scene with its three images as JPEGs
+# (baseline 4:2:0 with restart markers, progressive 4:2:2, greyscale; 512,
+# 256 and 512 texels a side, multi.glb's relation, so the same meta blocks
+# and launches), and the SHA-256 and shape of PIL's convert("RGBA") of each
+# (tests/test_torch_jpeg.py writes both)
+JPEG_GLB = os.path.join("tests", "assets", "jpeg.glb")
+JPEG_DIGESTS = os.path.join("tests", "assets", "jpeg_digests.json")
+
+
+def glb_parts(glb: bytes) -> tuple:
+    """A GLB's (JSON document, binary chunk)."""
+    (jlen,) = struct.unpack("<I", glb[12:16])
+    (blen,) = struct.unpack("<I", glb[20 + jlen : 24 + jlen])
+    return json.loads(glb[20 : 20 + jlen]), glb[28 + jlen : 28 + jlen + blen]
+
+
+def glb_images(glb: bytes) -> list:
+    """The bytes of each image of a GLB whose images live in its binary
+    chunk."""
+    doc, blob = glb_parts(glb)
+    views = [doc["bufferViews"][img["bufferView"]] for img in doc["images"]]
+    return [blob[v.get("byteOffset", 0) : v.get("byteOffset", 0) + v["byteLength"]]
+            for v in views]
+
+
+def glb_with_images(glb: bytes, images: list) -> bytes:
+    """``glb`` with its images replaced, in order, by ``images`` ((bytes,
+    MIME type) each), each appended 4-byte aligned to the binary chunk and
+    its bufferView pointed at it."""
+    doc, blob = glb_parts(glb)
+    blob = bytearray(blob)
+    for img, (data, mime) in zip(doc["images"], images):
+        doc["bufferViews"][img["bufferView"]].update(byteOffset=len(blob),
+                                                     byteLength=len(data))
+        img["mimeType"] = mime
+        blob += data + bytes(-len(data) % 4)
+    doc["buffers"][0]["byteLength"] = len(blob)
+    text = json.dumps(doc, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 4)
+    return (struct.pack("<III", 0x46546C67, 2, 28 + len(text) + len(blob))
+            + struct.pack("<II", len(text), 0x4E4F534A) + text
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+
+
+def check_multi_glb_run(tag: str, frames: list, calls: dict, err: str, max_err: dict) -> None:
+    """multi.glb's geometry through the CLI with --check-nan at its
+    defaults: no non-finite pixel; the one capacity line is the sparse
+    transmissive raster's, whose tile count is the reference's own
+    (MULTI_GLB_TRANSMISSION_TILES), and nothing else overflows; kernel 1
+    bit for bit against its plain version on the frame's calls."""
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+    from transmission_renderer_tpu_torch.render.frame import FrameDiagnostics
+
+    lines = [ln for ln in err.splitlines() if "VALIDATION" in ln]
+    require(bool(np.isfinite(frames[0]).all()) and "non-finite" not in err,
+            f"{tag}: image is not finite")
+    tiles = f"transmission_tiles=tensor({MULTI_GLB_TRANSMISSION_TILES}"
+    require(len(lines) == 1 and "capacity overflow" in lines[0] and tiles in lines[0]
+            and "transmission_tile_capacity=507" in lines[0], f"{tag}: {lines}")
+    fields = dict(re.findall(r"(\w+)=(?:tensor\()?(\d+)", lines[0]))
+    diag = FrameDiagnostics(**{f: int(fields[f]) for f in FrameDiagnostics._fields
+                               if f in fields and not f.startswith("clip_round")})
+    require(not diag._replace(transmission_tiles=0).overflowed(),
+            f"{tag}: another capacity overflowed: {lines[0]}")
+    log(f"{tag} --check-nan: {int(diag.transmission_tiles)} transmission "
+        f"tiles against a cap of {diag.transmission_tile_capacity} (the reference's "
+        f"binning gives {MULTI_GLB_TRANSMISSION_TILES}), no other overflow, no "
+        f"non-finite pixel")
+    check_parity((raster_gbuf.KERNEL,), {"raster_gbuf": calls["raster_gbuf"]}, max_err,
+                 f"{tag} ")
 
 
 def cli_run(handles, argv: list) -> tuple:
@@ -1637,14 +1719,13 @@ def cli_phase(card: str, max_err: dict, flagship_img, vis_img=None) -> dict:
     scene (the closest-hit kernel against its plain walk), the cluster
     views, multi.glb with --check-nan, the spotlights with the rotating
     model over 3 frames, and the flagship with --debug-checks (equal to
-    ``vis_img``, phase 8's frame, when given). -> the closest-hit
-    kernel's row."""
+    ``vis_img``, phase 8's frame, when given). -> (the closest-hit
+    kernel's row, the launches of multi.glb's run (e))."""
     import tempfile
 
     import torch
     from transmission_renderer_tpu_torch.config import RenderConfig
-    from transmission_renderer_tpu_torch.ops import bvh_closest, raster_gbuf
-    from transmission_renderer_tpu_torch.scene.textures import linear_to_srgb
+    from transmission_renderer_tpu_torch.ops import bvh_closest
     from transmission_renderer_tpu_torch.utils.png import read_png
 
     handles = port_handles()
@@ -1727,33 +1808,12 @@ def cli_phase(card: str, max_err: dict, flagship_img, vis_img=None) -> dict:
         require(bool(np.isfinite(img).all()) and img.min() >= 0.0 and img.max() <= 1.0,
                 "cluster view outside [0, 1] or not finite")
 
-        # (e) the GLB fixture (binary-chunk PNGs, no PIL) with --check-nan:
-        # no non-finite pixel; the one capacity line is the sparse
-        # transmissive raster's, whose tile count is the reference's own
-        # (MULTI_GLB_TRANSMISSION_TILES), and nothing else overflows
+        # (e) the GLB fixture (binary-chunk PNGs, no PIL) with --check-nan
         glb = os.path.join(ROOT, "tests", "assets", "multi.glb")
         frames, calls, launches_e, err = cli_run(
             handles, [glb, "--external-model", "--no-sponza", "--check-nan"]
             + out("multi.png"))
-        lines = [ln for ln in err.splitlines() if "VALIDATION" in ln]
-        require(bool(np.isfinite(frames[0]).all()) and "non-finite" not in err,
-                "multi.glb image is not finite")
-        tiles = f"transmission_tiles=tensor({MULTI_GLB_TRANSMISSION_TILES}"
-        require(len(lines) == 1 and "capacity overflow" in lines[0] and tiles in lines[0]
-                and "transmission_tile_capacity=507" in lines[0], f"multi.glb: {lines}")
-        from transmission_renderer_tpu_torch.render.frame import FrameDiagnostics
-
-        fields = dict(re.findall(r"(\w+)=(?:tensor\()?(\d+)", lines[0]))
-        diag = FrameDiagnostics(**{f: int(fields[f]) for f in FrameDiagnostics._fields
-                                   if f in fields and not f.startswith("clip_round")})
-        require(not diag._replace(transmission_tiles=0).overflowed(),
-                f"multi.glb: another capacity overflowed: {lines[0]}")
-        log(f"cli (e) multi.glb --check-nan: {int(diag.transmission_tiles)} transmission "
-            f"tiles against a cap of {diag.transmission_tile_capacity} (the reference's "
-            f"binning gives {MULTI_GLB_TRANSMISSION_TILES}), no other overflow, no "
-            f"non-finite pixel")
-        check_parity((raster_gbuf.KERNEL,), {"raster_gbuf": calls["raster_gbuf"]}, max_err,
-                     "cli (e) multi.glb ")
+        check_multi_glb_run("cli (e) multi.glb", frames, calls, err, max_err)
 
         # (f) the spotlights and the rotating model over 3 frames
         frames, _, _, _ = cli_run(
@@ -1781,7 +1841,72 @@ def cli_phase(card: str, max_err: dict, flagship_img, vis_img=None) -> dict:
         log(f"cli (g) --debug-checks flagship: exit 0, no report, launches {launches_g}, "
             f"equal to phase 8's frame: {same}")
         require(same, "--debug-checks frame differs from phase 8's visibility-buffer frame")
-    return row
+    return row, launches_e
+
+
+def jpeg_phase(card: str, max_err: dict, multi_launches: dict) -> None:
+    """Phase 14, glTF JPEG images, decoded without PIL:
+    (a) decode_jpeg gives each image of JPEG_GLB PIL's RGBA, by the
+    committed SHA-256 and shape; (b) JPEG_GLB through the CLI at its
+    defaults with --check-nan, as multi.glb in phase 11(e): the same
+    capacity line, kernel 1 bit for bit, the launches equal to
+    ``multi_launches``; (c) that frame bit-equal to its PNG twin's (the
+    same GLB with each image a PNG of its decoded RGBA, written here by
+    the port's PNG writer); (d) each image's decode time (host time)."""
+    import hashlib
+    import tempfile
+
+    from transmission_renderer_tpu_torch.utils.jpeg import decode_jpeg
+    from transmission_renderer_tpu_torch.utils.png import write_png
+
+    with open(os.path.join(ROOT, JPEG_GLB), "rb") as f:
+        glb = f.read()
+    with open(os.path.join(ROOT, JPEG_DIGESTS)) as f:
+        digests = json.load(f)
+    images, decoded = glb_images(glb), []
+    for k, (data, want) in enumerate(zip(images, digests)):
+        t0 = time.perf_counter()
+        rgba = decode_jpeg(data, f"image {k}")
+        sec = time.perf_counter() - t0
+        got = hashlib.sha256(rgba.tobytes()).hexdigest()
+        log(f"jpeg (a) image {k} ({want['form']}): shape {list(rgba.shape)}, sha256 "
+            f"{got[:16]}..., PIL's {want['sha256'][:16]}...: "
+            f"{'equal' if got == want['sha256'] else 'DIFFERENT'}")
+        require(list(rgba.shape) == want["shape"] and got == want["sha256"],
+                f"jpeg image {k}: decode_jpeg differs from PIL's RGBA")
+        mp = rgba.shape[0] * rgba.shape[1] / 1e6
+        log(f"jpeg (d) image {k} ({want['form']}, {len(data)} bytes): decoded in "
+            f"{sec * 1e3:.1f} ms, {sec / mp:.3f} s per megapixel (host time, on the host of "
+            f"[{card}])")
+        decoded.append(rgba)
+
+    handles = port_handles()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(ROOT, JPEG_GLB)
+        frames, calls, launches, err = cli_run(
+            handles, [path, "--external-model", "--no-sponza", "--check-nan",
+                      "-o", os.path.join(tmp, "jpeg.png")])
+        check_multi_glb_run("jpeg (b) jpeg.glb", frames, calls, err, max_err)
+        log(f"jpeg (b) launches {launches}; multi.glb's (phase 11(e)) {multi_launches}")
+        require(launches == multi_launches, "jpeg.glb's launches differ from multi.glb's")
+
+        pngs = []
+        for k, rgba in enumerate(decoded):
+            name = os.path.join(tmp, f"twin_{k}.png")
+            write_png(name, rgba[..., :3])  # every JPEG decodes opaque
+            with open(name, "rb") as f:
+                pngs.append((f.read(), "image/png"))
+        twin = os.path.join(tmp, "png_twin.glb")
+        with open(twin, "wb") as f:
+            f.write(glb_with_images(glb, pngs))
+        twin_frames, _, twin_launches, _ = cli_run(
+            handles, [twin, "--external-model", "--no-sponza", "-o",
+                      os.path.join(tmp, "twin.png")])
+        same = bool(np.array_equal(frames[0], twin_frames[0]))
+        log(f"jpeg (c) the {frames[0].shape[1]}x{frames[0].shape[0]} frame equals its PNG "
+            f"twin's bit for bit: {same}; the twin's launches {twin_launches}")
+        require(same, "jpeg.glb's frame differs from its PNG twin's")
+        require(twin_launches == launches, "the PNG twin's launches differ from jpeg.glb's")
 
 
 # Phase 12's quality flags, each with the reference's own pinned bound on
@@ -1901,7 +2026,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
         return {n: want.get(n, 0) for n in names}
 
     flag_ms = statistics.median(timed_frames(lambda: render_frame(
-        scene, dl, params, lights, cfg, flags), 2, 5))
+        scene, dl, params, lights, cfg, flags=flags), 2, 5))
     log(f"variants: the flagship 1920x1080 on [{card}]: median {flag_ms:.3f} ms/frame "
         f"(5 after 2, this phase)")
 
@@ -1943,7 +2068,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
         half = flag == "half_res_refraction"
         expect = launches_of(raster_gbuf=2, tap_finish=int(half), shade=int(half))
         img_f, _, diag, _, _ = run(f"variants (a) {flag}", lambda c=cfg_f, **kw: render_frame(
-            scene, dl, params, lights, c, flags, **kw), expect)
+            scene, dl, params, lights, c, flags=flags, **kw), expect)
         require(not diag.overflowed(), f"{flag}: capacity overflow {diag}")
         a, b = img_f.cpu().numpy(), exact_img.cpu().numpy()
         if space == "sRGB":
@@ -1962,7 +2087,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
     require(flags_t.transmission_ior_roughness is None, "textured glass: a static level set")
     img_t, _, diag, calls_t, got_t = run(
         "variants (b) textured roughness", lambda **kw: render_frame(
-            scene_t, dl_t, params, lights, cfg, flags_t, **kw),
+            scene_t, dl_t, params, lights, cfg, flags=flags_t, **kw),
         launches_of(**expected_launches(scene_t, flags_t)))
     require(not diag.overflowed(), f"textured roughness: capacity overflow {diag}")
     (fetch,) = calls_t["transmission_fetch"]
@@ -1973,7 +2098,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
     log(f"variants (b): kernel 4's full form over {fetch[0][2].shape[0]} pixels, levels "
         f"{sorted(set(int(v) for v in torch.unique(lvl).tolist()))} bracketed")
     tensor_t = render_frame(scene_t, dl_t, params, lights,
-                            dataclasses.replace(cfg, pallas_shade=False), flags_t)
+                            dataclasses.replace(cfg, pallas_shade=False), flags=flags_t)
     err = float(((img_t - tensor_t) ** 2).mean().sqrt())
     log(f"variants (b): linear RMSE {err:.3e} (max abs {float((img_t - tensor_t).abs().max()):.3e})"
         f" against the same frame through the tensor shade (limit 1e-4)")
@@ -1999,7 +2124,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
                                 transmission_block_cap_frac=None)
     img_d, _, diag, _, _ = run(
         "variants (c) dense transmission rt", lambda **kw: render_frame(
-            scene, dl, params, lights, cfg_d, flags, bvh=bvh, **kw),
+            scene, dl, params, lights, cfg_d, flags=flags, bvh=bvh, **kw),
         launches_of(raster_gbuf=2, tap_finish=1, shade=2, transmission_fetch=1,
                     bvh_occlusion=2),
         occl=(n_kinds, dl.tri_vtx, world_pos, ("2d", "2d")))
@@ -2017,7 +2142,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
     params_w = make_params(cfg_w, flagship_rig(), dev)
     img_w, _, diag, _, _ = run(
         "variants (d) 1600x900", lambda **kw: render_frame(
-            scene, dl, params_w, lights, cfg_w, flags, **kw),
+            scene, dl, params_w, lights, cfg_w, flags=flags, **kw),
         launches_of(raster_gbuf=2), shape=(900, 1600, 3))
     require(not diag.overflowed(), f"1600x900: capacity overflow {diag}")
 
@@ -2034,10 +2159,11 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
     log(f"variants (e): stress BVH over {s_bvh.num_tris} triangles built in "
         f"{time.perf_counter() - t0:.2f} s")
     cfg_srt = dataclasses.replace(cfg_s, ray_traced_shadows=True)
-    _, s_hdr = render_frame(s_scene, s_dl, s_params, s_lights, cfg_s, s_flags, return_hdr=True)
+    _, s_hdr = render_frame(s_scene, s_dl, s_params, s_lights, cfg_s, flags=s_flags,
+                            return_hdr=True)
     _, hdr_s, diag, _, _ = run(
         "variants (e) stress rt", lambda **kw: render_frame(
-            s_scene, s_dl, s_params, s_lights, cfg_srt, s_flags, bvh=s_bvh, **kw),
+            s_scene, s_dl, s_params, s_lights, cfg_srt, flags=s_flags, bvh=s_bvh, **kw),
         launches_of(raster_gbuf=10, tap_finish=1, shade=2, transmission_fetch=1,
                     bvh_occlusion=2),
         occl=(n_kinds, s_dl.tri_vtx, transform_vertices(s_scene, s_dl, s_params.proj_view)[0],
@@ -2054,7 +2180,7 @@ def variants_phase(card: str, max_err: dict, base: dict) -> dict:
     handles, names = vis_handles, [h.name for h in vis_handles]
     _, hdr_v, diag, _, _ = run(
         "variants (f) vis rt", lambda **kw: render_frame(
-            scene, dl, params, lights, cfg_vrt, flags, bvh=bvh, **kw),
+            scene, dl, params, lights, cfg_vrt, flags=flags, bvh=bvh, **kw),
         launches_of(raster_vis=2, bvh_occlusion=2),
         occl=(n_kinds, dl.tri_vtx, world_pos, ("2d", None)))
     brighter = float((hdr_v - base["hdr_vis"]).max())
@@ -2116,7 +2242,7 @@ def kernel_times() -> int:
     out = {}
     for cfg, kw in frames:
         calls = capture(handles, lambda cfg=cfg, kw=kw: render_frame(
-            scene, dl, params, lights, cfg, flags, **kw))
+            scene, dl, params, lights, cfg, flags=flags, **kw))
         for h in handles:
             if calls[h.name] and h.name not in out:
                 dev_ms, h_ms = kernel_ms(h, calls[h.name])
@@ -2129,7 +2255,7 @@ def kernel_times() -> int:
     cfg = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
                        use_pallas_raster=False)
     calls = capture((raster_vis.KERNEL,), lambda: render_frame(
-        s_scene, s_dl, make_params(cfg, bench_rig(0), dev), lights, cfg, s_flags))
+        s_scene, s_dl, make_params(cfg, bench_rig(0), dev), lights, cfg, flags=s_flags))
     dev_ms, h_ms = kernel_ms(raster_vis.KERNEL, calls["raster_vis"])
     out["raster_vis_alpha"] = {"ms": dev_ms, "host_ms": h_ms, "calls": len(calls["raster_vis"])}
     print(json.dumps({"kernel_times": out, "root": ROOT, "card": card_line()}), flush=True)
@@ -2176,7 +2302,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s, flags {flags}")
 
     def frame(**kw):
-        return render_frame(scene, dl, params, lights, cfg, flags, **kw)
+        return render_frame(scene, dl, params, lights, cfg, flags=flags, **kw)
 
     handles = port_handles()[:4]
 
@@ -2235,7 +2361,7 @@ def main() -> int:
         f"{bvh.level_counts}, built in {time.perf_counter() - t0:.2f} s")
 
     def rt_frame(**kw):
-        return render_frame(scene, dl, params, lights, cfg_rt, flags, bvh=bvh, **kw)
+        return render_frame(scene, dl, params, lights, cfg_rt, flags=flags, bvh=bvh, **kw)
 
     rt_handles = port_handles()[:5]
     # (a) the occlusion kernel's hit set, exactly; the plain walk also
@@ -2333,7 +2459,7 @@ def main() -> int:
                             half_res_shadow_rays=True)
 
     def half_frame(**kw):
-        return render_frame(scene, dl, params, lights, cfg_half, flags, bvh=bvh, **kw)
+        return render_frame(scene, dl, params, lights, cfg_half, flags=flags, bvh=bvh, **kw)
 
     half_calls = capture(rt_handles, half_frame)
     occl_h = check_occlusion(half_calls["bvh_occlusion"], n_kinds, "half-res ", dl.tri_vtx,
@@ -2366,7 +2492,7 @@ def main() -> int:
     cfg_vis = RenderConfig(width=1920, height=1080, use_pallas_raster=False)
 
     def vis_frame(**kw):
-        return render_frame(scene, dl, params, lights, cfg_vis, flags, **kw)
+        return render_frame(scene, dl, params, lights, cfg_vis, flags=flags, **kw)
 
     vis_handles = port_handles()
     # (a) kernel 6 on the frame's own inputs, in both orders
@@ -2454,7 +2580,8 @@ def main() -> int:
     bench_launches, bench_kernels = bench_scenes_phase(card, max_err)
 
     # ---- 11. the CLI ---------------------------------------------------------------
-    kernel_rows.append(cli_phase(card, max_err, img, img_vis))
+    closest_row, multi_launches = cli_phase(card, max_err, img, img_vis)
+    kernel_rows.append(closest_row)
 
     # ---- 12. the frame variants --------------------------------------------------
     full_form = variants_phase(card, max_err, {
@@ -2469,6 +2596,9 @@ def main() -> int:
     for row in kernel_rows:  # kernel 6's row covers its alpha form
         if row["name"] == "raster_vis":
             row["alpha_form"] = alpha_form
+
+    # ---- 14. glTF JPEG images ----------------------------------------------------
+    jpeg_phase(card, max_err, multi_launches)
 
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]

@@ -42,7 +42,7 @@ def test_bindless_frame_matches_golden(pair):
     "bindless"), sRGB RMSE < 4e-3 against tests/goldens/bindless.png."""
     scene, dl, flags, params = pair["port"]
     lights = pack_lights(light_dicts("bindless", port=True, n_bindless=20), device="cpu")
-    img = render_frame(scene, dl, params, lights, config("bindless"), flags)
+    img = render_frame(scene, dl, params, lights, config("bindless"), flags=flags)
     rmse = golden_rmse("bindless", img.numpy())
     assert rmse < 4e-3, rmse
 

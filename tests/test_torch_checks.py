@@ -53,7 +53,7 @@ def test_clean_frame_reports_nothing_and_matches(name):
     img = checked_frame_fn(config=VIS, flags=flags, out=log)(scene, dl, params, lights)
     assert log.getvalue() == ""
     assert not checks.active()
-    assert torch.equal(img, render_frame(scene, dl, params, lights, VIS, flags))
+    assert torch.equal(img, render_frame(scene, dl, params, lights, VIS, flags=flags))
     assert flags.has_alpha_clip == (name == "stress")
 
 
@@ -85,7 +85,7 @@ def test_run_start_past_the_records_is_reported():
     scene, dl, flags, params, lights = _bundle("test")
     raster_vis.KERNEL.recorder = []
     try:
-        render_frame(scene, dl, params, lights, VIS, flags)
+        render_frame(scene, dl, params, lights, VIS, flags=flags)
     finally:
         calls, raster_vis.KERNEL.recorder = raster_vis.KERNEL.recorder, None
     args, kw = calls[0]

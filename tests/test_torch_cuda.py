@@ -117,7 +117,7 @@ def captured(request):
     for h in handles:
         h.recorder = []
         h.launches = 0
-    img = render_frame(scene, dl, params, lights, cfg, flags, bvh=bvh)
+    img = render_frame(scene, dl, params, lights, cfg, flags=flags, bvh=bvh)
     torch.cuda.synchronize()
     out = {h.name: (h.recorder, h.launches) for h in handles}
     for h in handles:
@@ -675,7 +675,7 @@ def vis_captured(request):
     for h in handles:
         h.recorder = []
         h.launches = 0
-    img = render_frame(scene, dl, params, lights, cfg, flags)
+    img = render_frame(scene, dl, params, lights, cfg, flags=flags)
     torch.cuda.synchronize()
     out = {h.name: (h.recorder, h.launches) for h in handles}
     for h in handles:
@@ -910,7 +910,7 @@ def bench_captured(request):
     for h in handles:
         h.recorder = []
         h.launches = 0
-    img = render_frame(scene, dl, params, lights, cfg, flags)
+    img = render_frame(scene, dl, params, lights, cfg, flags=flags)
     torch.cuda.synchronize()
     out = {h.name: (h.recorder, h.launches) for h in handles}
     for h in handles:
@@ -1065,7 +1065,7 @@ def clip_captured():
     for h in handles:
         h.recorder = []
         h.launches = 0
-    img = render_frame(scene, dl, params, lights, cfg, flags)
+    img = render_frame(scene, dl, params, lights, cfg, flags=flags)
     torch.cuda.synchronize()
     launches = {h.name: h.launches for h in handles}
     calls = raster_vis.KERNEL.recorder

@@ -56,7 +56,7 @@ def frames():
     pparams = make_frame_params(CFG, rig.camera.view_matrix(), rig.camera.position,
                                 rig.sun_dir(), device="cpu")
     plights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
-    img, diag = render_frame(pscene, pdl, pparams, plights, CFG, pflags,
+    img, diag = render_frame(pscene, pdl, pparams, plights, CFG, flags=pflags,
                              return_diagnostics=True)
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     bridged = bridge.from_jax_arrays(as_np(scene), as_np(dl), as_np(params),
@@ -99,7 +99,7 @@ def test_frame_from_bridged_inputs(frames):
     """The port rendering the reference's own arrays (via the bridge)
     gives the same image as from its own builder."""
     _, _, got, _, (scene, dl, params, lights, flags) = frames
-    img = render_frame(scene, dl, params, lights, CFG, flags)
+    img = render_frame(scene, dl, params, lights, CFG, flags=flags)
     np.testing.assert_array_equal(img.numpy(), got)
 
 
@@ -175,13 +175,14 @@ def test_unported_branches_refuse():
     vis = dataclasses.replace(CFG, use_pallas_raster=False)
     params = make_frame_params(vis, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
-    clipped = render_frame(scene, dl, params, lights, vis, flags._replace(has_alpha_clip=True))
+    clipped = render_frame(scene, dl, params, lights, vis,
+                           flags=flags._replace(has_alpha_clip=True))
     assert bool(torch.isfinite(clipped).all())
-    assert torch.equal(clipped, render_frame(scene, dl, params, lights, vis, flags))
+    assert torch.equal(clipped, render_frame(scene, dl, params, lights, vis, flags=flags))
     for bad, fl, why in (
             (dataclasses.replace(CFG, tile_w=32), flags, "8x128"),
             (dataclasses.replace(CFG, pallas_pair_cap_frac=0.5), flags, "left out")):
         params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,
                                    rig.sun_dir(), device="cpu")
         with pytest.raises(NotImplementedError, match=why):
-            render_frame(scene, dl, params, lights, bad, fl)
+            render_frame(scene, dl, params, lights, bad, flags=fl)

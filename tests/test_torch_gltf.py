@@ -8,8 +8,9 @@ plus tests/assets/multi.glb, is loaded by both packages' load_gltf
 list of the SceneBuilder, every Scene, DrawList and SceneFlags output of
 finish_bundle (the bf16 atlas by bit pattern) must be equal bit for bit;
 a document the reference rejects (a non-triangle primitive) is rejected
-by the port with the same ValueError. A JPEG image raises
-NotImplementedError naming its ROADMAP item.
+by the port with the same ValueError. JPEG images (tests/assets/jpeg.glb's,
+one from a ``data:`` URI, one from a bufferView and one from a ``.jpg``
+file) load through both packages with every array equal.
 """
 
 import base64
@@ -84,29 +85,35 @@ def test_documents_cover_the_reference_tests(documents):
     assert any(p.endswith(".glb") for p in documents)
 
 
+def _assert_loads_equal(name, path, opts):
+    """The same staging lists and finish_bundle outputs bit for bit, or
+    the same rejection."""
+    jb, pb = JBuilder(), SceneBuilder()
+    j_err = _load(jload, jb, path, opts)
+    p_err = _load(pgltf.load_gltf, pb, path, opts)
+    assert p_err == j_err, name
+    if j_err is not None:
+        return
+    for field in ("positions", "normals", "uvs", "indices", "prim_sphere",
+                  "inst_translation", "inst_rotation"):
+        for a, b in zip(getattr(pb, field), getattr(jb, field), strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=f"{name} {field}")
+    for field in ("prim_bucket", "prim_first_tri", "prim_tri_count", "inst_scale",
+                  "inst_primitive", "inst_material", "materials"):
+        assert getattr(pb, field) == getattr(jb, field), (name, field)
+    j_scene, j_dl, j_flags = jax.tree_util.tree_map(_host, jb.finish_bundle())
+    p_scene, p_dl, p_flags = pb.finish_bundle(device="cpu")
+    _assert_tree_equal(p_scene, j_scene, f"{name} scene")
+    _assert_tree_equal(p_dl, j_dl, f"{name} draw list")
+    assert tuple(p_flags) == tuple(j_flags), name
+
+
 @pytest.mark.parametrize("opts", sorted(OPTIONS))
 def test_loader_matches_reference(documents, opts):
     """Every document: the same staging lists and finish_bundle outputs
     bit for bit, or the same rejection."""
     for name, path in documents.items():
-        jb, pb = JBuilder(), SceneBuilder()
-        j_err = _load(jload, jb, path, OPTIONS[opts])
-        p_err = _load(pgltf.load_gltf, pb, path, OPTIONS[opts])
-        assert p_err == j_err, name
-        if j_err is not None:
-            continue
-        for field in ("positions", "normals", "uvs", "indices", "prim_sphere",
-                      "inst_translation", "inst_rotation"):
-            for a, b in zip(getattr(pb, field), getattr(jb, field), strict=True):
-                np.testing.assert_array_equal(a, b, err_msg=f"{name} {field}")
-        for field in ("prim_bucket", "prim_first_tri", "prim_tri_count", "inst_scale",
-                      "inst_primitive", "inst_material", "materials"):
-            assert getattr(pb, field) == getattr(jb, field), (name, field)
-        j_scene, j_dl, j_flags = jax.tree_util.tree_map(_host, jb.finish_bundle())
-        p_scene, p_dl, p_flags = pb.finish_bundle(device="cpu")
-        _assert_tree_equal(p_scene, j_scene, f"{name} scene")
-        _assert_tree_equal(p_dl, j_dl, f"{name} draw list")
-        assert tuple(p_flags) == tuple(j_flags), name
+        _assert_loads_equal(name, path, OPTIONS[opts])
 
 
 def test_accessors_and_images_match_reference():
@@ -135,13 +142,28 @@ def test_node_transforms_match_reference(documents):
 
 
 def test_jpeg_image_names_its_roadmap_item(tmp_path):
-    jpeg = b"\xff\xd8\xff\xe0" + bytes(60)
-    doc = {"asset": {"version": "2.0"},
-           "images": [{"uri": "data:image/jpeg;base64," + base64.b64encode(jpeg).decode()}]}
-    p = tmp_path / "jpeg.gltf"
-    p.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        pgltf.GltfDocument.load(str(p)).read_image(0)
+    """Once the refusal of a JPEG image (ROADMAP queue 1, item 9), now its
+    parity: jpeg.glb's scene as a .gltf whose three JPEG images come from
+    a ``data:`` URI, a bufferView and a ``.jpg`` file beside it loads
+    through both packages with every image and every array equal."""
+    from test_torch_bench_hd import smoke_module
+
+    smoke = smoke_module()
+    with open(os.path.join(os.path.dirname(__file__), "assets", "jpeg.glb"), "rb") as f:
+        glb = f.read()
+    doc, blob = smoke.glb_parts(glb)
+    jpegs = smoke.glb_images(glb)
+    doc["images"][0] = {"uri": "data:image/jpeg;base64," + base64.b64encode(jpegs[0]).decode()}
+    (tmp_path / "leaf.jpg").write_bytes(jpegs[2])
+    doc["images"][2] = {"uri": "leaf.jpg"}
+    (tmp_path / "jpeg.bin").write_bytes(blob)
+    doc["buffers"] = [{"uri": "jpeg.bin", "byteLength": len(blob)}]
+    path = tmp_path / "jpeg.gltf"
+    path.write_text(json.dumps(doc))
+    jd, pd = JDocument.load(str(path)), pgltf.GltfDocument.load(str(path))
+    for i in range(3):
+        np.testing.assert_array_equal(pd.read_image(i), jd.read_image(i))
+    _assert_loads_equal("jpeg.gltf", str(path), {})
 
 
 def test_path_for_gltf_model():

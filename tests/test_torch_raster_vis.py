@@ -399,7 +399,7 @@ def test_vis_covered_pairs_counts_the_covering_records():
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     raster_vis.KERNEL.recorder = []
     try:
-        render_frame(scene, dl, params, lights, cfg, flags)
+        render_frame(scene, dl, params, lights, cfg, flags=flags)
         calls = raster_vis.KERNEL.recorder
     finally:
         raster_vis.KERNEL.recorder = None

@@ -81,7 +81,7 @@ def frame_pair(request):
     for h in handles:
         h.recorder = []
     try:
-        img, diag = pframe.render_frame(*pin[:4], cfg, pin[4], return_diagnostics=True)
+        img, diag = pframe.render_frame(*pin[:4], cfg, flags=pin[4], return_diagnostics=True)
     finally:
         for h in handles:
             calls[h.name] = len(h.recorder)

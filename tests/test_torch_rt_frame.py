@@ -85,7 +85,7 @@ def frames():
 
             ref_img, ref_diag, ref_f = jax.jit(run)(scene, dl, params, lights, jbvh)
             pcalls.clear()
-            img, diag = pframe.render_frame(*pinputs[:4], cfg, pinputs[4], bvh=pbvh,
+            img, diag = pframe.render_frame(*pinputs[:4], cfg, flags=pinputs[4], bvh=pbvh,
                                             return_diagnostics=True)
             out[half] = dict(
                 ref=np.asarray(ref_img), ref_diag=as_np(ref_diag),

@@ -145,12 +145,12 @@ def test_port_runs_without_jax_pil_ml_dtypes():
         params = make_frame_params(cfg, rig.camera.view_matrix(),
                                    rig.camera.position, rig.sun_dir(), device="cpu")
         lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
-        img, hdr, diag = render_frame(scene, dl, params, lights, cfg, flags,
+        img, hdr, diag = render_frame(scene, dl, params, lights, cfg, flags=flags,
                                       return_hdr=True, return_diagnostics=True)
         assert img.shape == (72, 128, 3) and bool(torch.isfinite(img).all())
         assert not diag.overflowed()
         rt = dataclasses.replace(cfg, ray_traced_shadows=True)
-        img_rt, hdr_rt, diag = render_frame(scene, dl, params, lights, rt, flags,
+        img_rt, hdr_rt, diag = render_frame(scene, dl, params, lights, rt, flags=flags,
                                             return_hdr=True, return_diagnostics=True,
                                             bvh=builder.build_rt_bvh(device="cpu"))
         assert bool(torch.isfinite(img_rt).all()) and not diag.overflowed()
@@ -158,7 +158,7 @@ def test_port_runs_without_jax_pil_ml_dtypes():
         assert bool((hdr_rt <= hdr).all()) and bool((hdr_rt < hdr - 0.05).any())
         # the visibility-buffer branch (the CPU default) with its tensor shade
         vis = dataclasses.replace(cfg, use_pallas_raster=None)
-        img_vis, diag = render_frame(scene, dl, params, lights, vis, flags,
+        img_vis, diag = render_frame(scene, dl, params, lights, vis, flags=flags,
                                      return_diagnostics=True)
         assert bool(torch.isfinite(img_vis).all()) and not diag.overflowed()
         assert int(diag.transmission_tiles) == 0 and int(diag.transmission_blocks) > 0
@@ -167,7 +167,7 @@ def test_port_runs_without_jax_pil_ml_dtypes():
         from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
         scene, dl, flags = build_stress_scene(grid=2).finish_bundle(device="cpu")
         clip_cfg = dataclasses.replace(cfg, opaque_block_cap_frac=1.0)
-        img_clip, diag = render_frame(scene, dl, params, lights, clip_cfg, flags,
+        img_clip, diag = render_frame(scene, dl, params, lights, clip_cfg, flags=flags,
                                       return_diagnostics=True)
         assert flags.has_alpha_clip and bool(torch.isfinite(img_clip).all())
         assert len(diag.clip_round_demand) == 3 and int(diag.opaque_blocks) > 0

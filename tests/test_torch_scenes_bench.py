@@ -123,7 +123,7 @@ def render_pair(name: str) -> dict:
     try:
         img, diag = render_frame(pscene, pdl, pparams,
                                  pack_lights(light_dicts(name, port=True), device="cpu"), cfg,
-                                 pflags, return_diagnostics=True)
+                                 flags=pflags, return_diagnostics=True)
         calls = {h.name: h.recorder for h in handles()}
     finally:
         for h in handles():

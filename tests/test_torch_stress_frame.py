@@ -104,7 +104,7 @@ def render_pair(name: str, scenes) -> tuple:
     plights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     raster_gbuf.KERNEL.recorder = []
     try:
-        img, diag = render_frame(pscene, pdl, pparams, plights, cfg, pflags,
+        img, diag = render_frame(pscene, pdl, pparams, plights, cfg, flags=pflags,
                                  return_diagnostics=True)
     finally:
         calls, raster_gbuf.KERNEL.recorder = raster_gbuf.KERNEL.recorder, None
@@ -270,15 +270,15 @@ def test_former_refusals_render():
     params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
-    base = render_frame(scene, dl, params, lights, cfg, flags)
+    base = render_frame(scene, dl, params, lights, cfg, flags=flags)
     sparse, diag = render_frame(scene, dl, params, lights,
-                                dataclasses.replace(cfg, opaque_block_cap_frac=1.0), flags,
+                                dataclasses.replace(cfg, opaque_block_cap_frac=1.0), flags=flags,
                                 return_diagnostics=True)
     assert not diag.overflowed() and 0 < int(diag.opaque_blocks) <= diag.opaque_block_capacity
     assert torch.equal(sparse, base)
     for variant, fl in ((dataclasses.replace(cfg, sparse_raster_tile_floor=256), flags),
                         (cfg, flags._replace(has_alpha_clip=True))):
-        img, diag = render_frame(scene, dl, params, lights, variant, fl,
+        img, diag = render_frame(scene, dl, params, lights, variant, flags=fl,
                                  return_diagnostics=True)
         assert not diag.overflowed()
         np.testing.assert_allclose(img.numpy(), base.numpy(), rtol=0, atol=1e-6)
@@ -298,9 +298,9 @@ def test_block_sparse_opaque_shade_gathers_shadow_factors():
                                rig.sun_dir(), device="cpu")
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
     bvh = builder.build_rt_bvh(device="cpu")
-    dense = render_frame(scene, dl, params, lights, cfg, flags, bvh=bvh)
+    dense = render_frame(scene, dl, params, lights, cfg, flags=flags, bvh=bvh)
     sparse = render_frame(scene, dl, params, lights,
-                          dataclasses.replace(cfg, opaque_block_cap_frac=1.0), flags, bvh=bvh)
+                          dataclasses.replace(cfg, opaque_block_cap_frac=1.0), flags=flags, bvh=bvh)
     assert torch.equal(sparse, dense)
 
 
@@ -320,15 +320,16 @@ def test_stress_refusals():
     cfg = dataclasses.replace(pal, use_pallas_raster=False)
     params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
-    vis = render_frame(scene, dl, params, lights, cfg, flags)
+    vis = render_frame(scene, dl, params, lights, cfg, flags=flags)
     assert torch.isfinite(vis).all() and vis.min() >= 0.0 and vis.max() <= 1.0
-    unclipped = render_frame(scene, dl, params, lights, cfg, flags._replace(has_alpha_clip=False))
+    unclipped = render_frame(scene, dl, params, lights, cfg,
+                             flags=flags._replace(has_alpha_clip=False))
     assert (vis != unclipped).any()
     rt = dataclasses.replace(pal, ray_traced_shadows=True, alpha_clip_rounds=2)
     params = make_frame_params(rt, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
-    _, lit = render_frame(scene, dl, params, lights, rt, flags, return_hdr=True)
-    img, hdr = render_frame(scene, dl, params, lights, rt, flags, return_hdr=True,
+    _, lit = render_frame(scene, dl, params, lights, rt, flags=flags, return_hdr=True)
+    img, hdr = render_frame(scene, dl, params, lights, rt, flags=flags, return_hdr=True,
                             bvh=builder.build_rt_bvh(device="cpu"))
     assert torch.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0
     assert (hdr <= lit).all() and (hdr < lit).any()

@@ -123,7 +123,7 @@ def frames():
     assert inputs[4].has_alpha_clip
     raster_vis.KERNEL.recorder = []
     try:
-        got = render_frame(*inputs[:4], CFG, inputs[4], return_hdr=True,
+        got = render_frame(*inputs[:4], CFG, flags=inputs[4], return_hdr=True,
                            return_diagnostics=True)
     finally:
         calls, raster_vis.KERNEL.recorder = raster_vis.KERNEL.recorder, None
@@ -184,7 +184,7 @@ def test_vis_clip_frame_meets_golden():
     params = make_frame_params(CFG, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
-    img = render_frame(scene, dl, params, lights, CFG, flags)
+    img = render_frame(scene, dl, params, lights, CFG, flags=flags)
     golden = read_png(os.path.join(GOLDEN_DIR, "stress.png"))[..., :3] / 255.0
     rmse = float(np.sqrt(np.mean((linear_to_srgb(img.numpy()) - golden) ** 2)))
     print(f"sRGB RMSE vs stress.png {rmse:.3g}")

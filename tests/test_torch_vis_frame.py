@@ -98,7 +98,7 @@ def frames(request):
                           return_diagnostics=True))(scene, dl, params, lights)
     inputs = bridge.from_jax_arrays(_np(scene), _np(dl), _np(params), _np(lights), flags,
                                     device="cpu")
-    got = render_frame(*inputs[:4], cfg, inputs[4], return_hdr=True,
+    got = render_frame(*inputs[:4], cfg, flags=inputs[4], return_hdr=True,
                        return_diagnostics=True)
     return _np(ref), got
 
@@ -136,7 +136,7 @@ def test_vis_frame_matches_golden():
     params = make_frame_params(CFG, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device="cpu")
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device="cpu")
-    img, diag = render_frame(scene, dl, params, lights, CFG, flags, return_diagnostics=True)
+    img, diag = render_frame(scene, dl, params, lights, CFG, flags=flags, return_diagnostics=True)
     assert not diag.overflowed() and diag.transmission_tiles == 0  # the vis branch
     golden = read_png(os.path.join(GOLDEN_DIR, "dragon.png"))[..., :3] / 255.0
     rmse = float(np.sqrt(np.mean((linear_to_srgb(img.numpy()) - golden) ** 2)))
@@ -429,7 +429,7 @@ def test_hd_vis_frame_matches_reference_and_golden():
                                     return_diagnostics=True))(scene, dl, params, lights)
     inputs = bridge.from_jax_arrays(_np(scene), _np(dl), _np(params), _np(lights), flags,
                                     device="cpu")
-    img, diag = render_frame(*inputs[:4], CFG_HD, inputs[4], return_diagnostics=True)
+    img, diag = render_frame(*inputs[:4], CFG_HD, flags=inputs[4], return_diagnostics=True)
     assert smoke.diagnostics_dict(_np(ref_diag)) == smoke.HD_VIS_DIAGNOSTICS
     assert smoke.diagnostics_dict(diag) == smoke.HD_VIS_DIAGNOSTICS
     assert diag.overflowed()

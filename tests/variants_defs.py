@@ -171,7 +171,7 @@ def render_port(scenes: Scenes, cfg, record: bool = False) -> dict:
     for h in HANDLES.values():
         h.recorder = [] if record else None
     try:
-        img, hdr, diag = pframe.render_frame(scene, dl, params, lights, cfg, flags,
+        img, hdr, diag = pframe.render_frame(scene, dl, params, lights, cfg, flags=flags,
                                              return_hdr=True, return_diagnostics=True,
                                              bvh=scenes.port_bvh)
     finally:

@@ -22,3 +22,5 @@ the caller passes ``device="cpu"``, and raise when there is no card.
 """
 
 __version__ = "0.1.0"
+
+from transmission_renderer_tpu_torch.config import RenderConfig  # noqa: F401, E402

@@ -22,10 +22,10 @@ them). ``--debug-checks`` renders through render/checks.py's
 checked_frame_fn (the visibility-buffer branch with the index checks
 on), and exits 2 with the reference's message beside ``--devices`` > 1,
 ``--as-debug`` or ``--ray-tracing``. A mode the port does not have yet
-(``--devices`` > 1, a JPEG image in a glTF, a frame branch
-``render_frame`` refuses) prints the NotImplementedError message, which
-says why, and exits with code 2, as the reference's CLI does for the
-combinations it rejects.
+(``--devices`` > 1, a frame branch ``render_frame`` refuses) prints the
+NotImplementedError message, which says why, and exits with code 2, as
+the reference's CLI does for the combinations it rejects. glTF images
+decode as PNG or JPEG without PIL.
 """
 
 from __future__ import annotations
@@ -266,14 +266,14 @@ def _run(args, dev, frames_out) -> int:
         # validation mode also reads the FrameDiagnostics and warns on any
         # capacity overflow
         def render(s, d, p, lt):
-            ldr, diag = render_frame(s, d, p, lt, config, flags, bvh=bvh,
+            ldr, diag = render_frame(s, d, p, lt, config, flags=flags, bvh=bvh,
                                      return_diagnostics=True)
             if diag.overflowed():
                 print(f"VALIDATION: capacity overflow! {diag}", file=sys.stderr)
             return ldr
     else:
         def render(s, d, p, lt):
-            return render_frame(s, d, p, lt, config, flags, bvh=bvh)
+            return render_frame(s, d, p, lt, config, flags=flags, bvh=bvh)
 
     if args.debug_checks:
         from transmission_renderer_tpu_torch.render.checks import checked_frame_fn

@@ -1,7 +1,8 @@
-"""Lottes tonemapper on channel planes.
+"""Lottes tonemapper on channel planes, and on interleaved channels.
 
 Counterpart of ``transmission_renderer_tpu/pbr/tonemap.py``
-(LottesParams, bake_lottes_params, lottes_tonemap_planes): the same
+(LottesParams, bake_lottes_params, lottes_tonemap_planes,
+lottes_tonemap): the same
 constraint fit for b and c, evaluated in float64 on the host and stored
 as float32, and the same per-channel op order.
 """
@@ -89,3 +90,9 @@ def lottes_tonemap_planes(planes: tuple, p: BakedLottesParams) -> tuple:
         return torch.clamp(ratio * tonemapped_max, 0.0, 1.0)
 
     return (chan(r), chan(g), chan(b))
+
+
+def lottes_tonemap(colour: torch.Tensor, p: BakedLottesParams) -> torch.Tensor:
+    """``lottes_tonemap_planes`` on interleaved [..., 3] linear HDR ->
+    [..., 3] in [0, 1] (the reference's interleaved form)."""
+    return torch.stack(lottes_tonemap_planes(tuple(colour.unbind(-1)), p), dim=-1)

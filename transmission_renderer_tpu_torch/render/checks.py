@@ -118,9 +118,9 @@ def report_line(site: str, count) -> str:
 
 def checked_frame_fn(*, config, flags, bvh=None, out=sys.stderr):
     """``render(scene, dl, params, lights)`` -> the frame of
-    ``render_frame(..., config, flags)`` with the index checks on; every
-    site that read an out-of-range index prints one line per frame to
-    ``out``.
+    ``render_frame(..., config, flags=flags)`` with the index checks on;
+    every site that read an out-of-range index prints one line per frame
+    to ``out``.
 
     Forces the visibility-buffer branch (``use_pallas_raster=False``), as
     the reference does. The reference also forces
@@ -138,7 +138,7 @@ def checked_frame_fn(*, config, flags, bvh=None, out=sys.stderr):
 
     def render(scene, dl, params, lights):
         with collect() as found:
-            img = render_frame(scene, dl, params, lights, config, flags)
+            img = render_frame(scene, dl, params, lights, config, flags=flags)
         for site, count in found:
             print(report_line(site, count), file=out)
         return img

@@ -2,7 +2,8 @@
 
 Counterpart of ``transmission_renderer_tpu/render/frame.py``: DrawList,
 SceneFlags and their host derivation (expand_draw_list_numpy,
-build_draw_list_from_numpy, scene_flags_from_arrays),
+build_draw_list_from_numpy, scene_flags_from_arrays, and from a frozen
+Scene build_draw_list and scene_flags),
 refraction_level_set, FrameDiagnostics, FrameParams, make_frame_params,
 _static_cluster_data, _class_tile_worklist, _tile_cap, _gather_gbuffer,
 the alpha-clip depth peel (_clip_alpha_ok_tiles, _merge_gbuffers,
@@ -195,6 +196,21 @@ def build_draw_list_from_numpy(*args, device=CARD) -> DrawList:
     return DrawList(**{k: torch.from_numpy(v).to(device) for k, v in d.items()})
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def build_draw_list(scene: Scene) -> DrawList:
+    """The DrawList of a frozen Scene, on the scene's device. It reads the
+    scene's tensors back to the host; ``SceneBuilder.finish_bundle`` gives
+    the same without the readback."""
+    return build_draw_list_from_numpy(
+        _host(scene.inst_primitive_id), _host(scene.inst_material_id),
+        _host(scene.prim_first_tri), _host(scene.prim_tri_count),
+        _host(scene.prim_draw_bucket), _host(scene.indices),
+        device=scene.positions.device)
+
+
 class SceneFlags(NamedTuple):
     """Static facts about a scene that gate whole passes (see the
     reference's SceneFlags for each field's meaning)."""
@@ -284,6 +300,16 @@ def scene_flags_from_arrays(prim_buckets, inst_prim, inst_mat, cols: dict,
         slot_bundles=compute_slot_bundles(cols),
         atlas_pot=atlas_all_pot(atlas_meta),
     )
+
+
+def scene_flags(scene: Scene) -> SceneFlags:
+    """The SceneFlags of a frozen Scene (reads its tensors back to the
+    host)."""
+    m = scene.materials
+    return scene_flags_from_arrays(
+        _host(scene.prim_draw_bucket), _host(scene.inst_primitive_id),
+        _host(scene.inst_material_id), {n: _host(getattr(m, n)) for n in TEX_SLOT_NAMES},
+        _host(m.roughness_factor), _host(m.index_of_refraction), _host(scene.atlas_meta))
 
 
 def refraction_level_set(flags: SceneFlags, width: int, num_levels: int):
@@ -731,17 +757,20 @@ def render_frame(
     params: FrameParams,
     lights: Lights,
     config: RenderConfig,
-    flags: SceneFlags,
     ggx_lut: torch.Tensor | None = None,
+    flags: SceneFlags | None = None,
     return_hdr: bool = False,
-    return_diagnostics: bool = False,
     bvh: BVH | None = None,
+    return_diagnostics: bool = False,
 ):
     """Render one frame -> tonemapped linear [H, W, 3] in [0, 1] on the
     scene's device; with ``return_diagnostics`` also FrameDiagnostics
     (check ``overflowed()``). Ray-traced shadows are on when
     ``config.ray_traced_shadows`` and a ``bvh``
-    (SceneBuilder.build_rt_bvh) is given.
+    (SceneBuilder.build_rt_bvh) is given. The parameters are the
+    reference's, in its order: ``flags`` None means a scene with alpha
+    clip and transmission (every pass runs), and ``ggx_lut`` None the
+    default LUT (utils/ggx_lut.py::default_ggx_lut).
 
     ``config.use_pallas_raster`` None takes the G-buffer kernel branch on
     the card with 8x128 tiles and the visibility-buffer branch otherwise
@@ -757,6 +786,8 @@ def render_frame(
     if use_pallas is None:
         use_pallas = dev.type != "cpu" and (config.tile_w, config.tile_h) == (TILE_W, TILE_H)
     use_rt = config.ray_traced_shadows and bvh is not None
+    if flags is None:
+        flags = SceneFlags(has_alpha_clip=True, has_transmission=True)
     _check_branch(config, flags, use_pallas)
     if ggx_lut is None:
         ggx_lut = _default_lut(config.ggx_lut_size, dev)

@@ -13,10 +13,10 @@ KHR_materials_ior / transmission / volume / specular and
 KHR_texture_transform (scale, base colour only). The code is the
 reference's, with the port's SceneBuilder.
 
-Images decode through the port's own PNG codec (utils/png.py), to the
-same RGBA8 that the reference gets from PIL. The machine with the card
-has no PIL, so a JPEG image raises NotImplementedError (ROADMAP queue 1,
-item 9): nothing decodes it approximately.
+Images decode through the port's own PNG and JPEG decoders
+(utils/png.py, utils/jpeg.py), to the same RGBA8 that the reference gets
+from PIL, without PIL. A JPEG is known by its SOI bytes, from a
+bufferView, a ``data:`` URI or a file.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import struct
 
 import numpy as np
 
+from transmission_renderer_tpu_torch.utils.jpeg import decode_jpeg
 from transmission_renderer_tpu_torch.utils.png import decode_png
 
 from transmission_renderer_tpu_torch.scene.builder import SceneBuilder, classify_draw_bucket
@@ -185,11 +186,8 @@ class GltfDocument:
             start = bv.get("byteOffset", 0)
             raw = buf[start : start + bv["byteLength"]]
             name = f"image {index}"
-        if raw[:3] == b"\xff\xd8\xff":
-            raise NotImplementedError(
-                f"{name}: JPEG images in glTF: ROADMAP queue 1, item 9 (a baseline-JPEG "
-                "decoder that matches PIL's)")
-        rgba = decode_png(bytes(raw), name)
+        decode = decode_jpeg if raw[:3] == b"\xff\xd8\xff" else decode_png
+        rgba = decode(bytes(raw), name)
         self._image_cache[index] = rgba
         return rgba
 

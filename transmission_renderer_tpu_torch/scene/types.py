@@ -2,9 +2,11 @@
 material table and the frozen ``Scene``.
 
 Counterpart of ``transmission_renderer_tpu/scene/types.py`` (quat_mul,
-quat_rotate, quat_from_rotation_y, quat_from_axis_angle, Similarity, similarity_apply, MaterialsSoA,
-default_material, pack_materials, Scene). Same fields, same arithmetic order; arrays are
-``torch.Tensor`` and ``to_device`` moves a whole NamedTuple tree.
+quat_rotate, quat_from_rotation_y, quat_from_axis_angle, Similarity,
+similarity_identity, similarity_apply, similarity_mul,
+similarity_to_mat4, MaterialsSoA, default_material, pack_materials,
+Scene). Same fields, same arithmetic order; arrays are ``torch.Tensor``
+and ``to_device`` moves a whole NamedTuple tree.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from transmission_renderer_tpu_torch.utils.platform import CARD, resolve_device
 
 
 # --------------------------------------------------------------------------
@@ -90,6 +94,42 @@ def similarity_apply(s: Similarity, v: torch.Tensor) -> torch.Tensor:
     f64 = torch.float64
     r = quat_rotate(s.rotation, v)
     return (s.scale[..., None].to(f64) * r.to(f64) + s.translation.to(f64)).to(r.dtype)
+
+
+def similarity_identity(batch: tuple = (), device=CARD) -> Similarity:
+    """The identity transform, batched over ``batch``."""
+    device = resolve_device(device)
+    return Similarity(
+        translation=torch.zeros(batch + (3,), dtype=torch.float32, device=device),
+        scale=torch.ones(batch, dtype=torch.float32, device=device),
+        rotation=torch.tensor([0.0, 0.0, 0.0, 1.0], device=device).expand(batch + (4,)),
+    )
+
+
+def similarity_mul(a: Similarity, b: Similarity) -> Similarity:
+    """Group product a * b (shared-structs/src/lib.rs:223-233)."""
+    return Similarity(
+        translation=similarity_apply(a, b.translation),
+        scale=a.scale * b.scale,
+        rotation=quat_mul(a.rotation, b.rotation),
+    )
+
+
+def similarity_to_mat4(s: Similarity) -> torch.Tensor:
+    """As [..., 4, 4] matrices, M @ [p, 1] convention (shared-structs
+    lib.rs:216-221)."""
+    q = s.rotation
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rot = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
+    m = torch.zeros(s.scale.shape + (4, 4), dtype=torch.float32, device=q.device)
+    m[..., :3, :3] = rot * s.scale[..., None, None]
+    m[..., :3, 3] = s.translation
+    m[..., 3, 3] = 1.0
+    return m
 
 
 # --------------------------------------------------------------------------

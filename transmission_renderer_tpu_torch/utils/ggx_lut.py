@@ -1,20 +1,28 @@
 """Split-sum GGX environment-BRDF LUT (NumPy).
 
-Counterpart of ``transmission_renderer_tpu/utils/ggx_lut.py``, the port's
-own copy of its bake: the standard Karis split-sum integration (GGX
-importance sampling, Smith height-correlated visibility, Hammersley
-points), flipped on the roughness axis and quantised to UNORM8 to match
-the reference asset's conventions, then box-reduced to the sampled size.
-The reference can also load the asset's PNG from a path given in its
-environment; the port always bakes, which is what the reference does
-when no path is given.
+Counterpart of ``transmission_renderer_tpu/utils/ggx_lut.py``. Like the
+reference's, ``default_ggx_lut`` loads the reference asset's
+``ggx_lut.png`` when the ``TRTPU_GGX_LUT`` environment variable names a
+readable one (``load_ggx_lut_png``, through the port's PNG decoder: the
+UNORM8 red and green channels / 255, rows as stored), and otherwise bakes
+the table: the standard Karis split-sum integration (GGX importance
+sampling, Smith height-correlated visibility, Hammersley points), flipped
+on the roughness axis and quantised to UNORM8 to match the asset's
+conventions. Either is box-reduced to the sampled size. The reference
+also tries a fixed path of its own build environment after the variable;
+the port does not, so set the variable to that asset for the same table.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import struct
+import zlib
 
 import numpy as np
+
+from transmission_renderer_tpu_torch.utils.png import read_png
 
 
 def _hammersley(n: int) -> np.ndarray:
@@ -71,23 +79,41 @@ def compute_ggx_lut(size: int = 128, num_samples: int = 512) -> np.ndarray:
     return np.stack([scale, bias], -1).astype(np.float32)
 
 
+def load_ggx_lut_png(path: str) -> np.ndarray:
+    """A ggx_lut.png as [S, S, 2] float32, rows as stored: the red and
+    green UNORM8 channels / 255 (the reference uploads it linear and its
+    shader reads .xy)."""
+    return read_png(path)[..., :2].astype(np.float32) / 255.0
+
+
 def _box_downsample(lut: np.ndarray, size: int) -> np.ndarray:
     """Integer-factor box average of an [S, S, 2] LUT down to [size,
-    size, 2] (unchanged when size >= S)."""
+    size, 2] (unchanged when size >= S); ValueError when size does not
+    divide S."""
     s = lut.shape[0]
     if size >= s:
         return lut
     f = s // size
-    assert size * f == s, "LUT size must divide the source size"
+    if size * f != s:
+        raise ValueError(f"LUT size {size} does not divide the source size {s}")
     return lut.reshape(size, f, size, f, lut.shape[-1]).mean(axis=(1, 3)).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=4)
 def default_ggx_lut(size: int | None = 256) -> np.ndarray:
-    """The LUT the renderer uses: the bake in the asset's orientation
-    (roughness axis inverted, as the reference's ggx_lut.png stores it and
-    its shader samples it) and UNORM8 quantisation, box-reduced to
-    ``size`` (None = native)."""
+    """The LUT the renderer uses, box-reduced to ``size`` (None =
+    native): the PNG that ``TRTPU_GGX_LUT`` names when it exists and
+    reads (a file that does not read or reduce falls through, as in the
+    reference), else the bake in the asset's orientation (roughness axis
+    inverted, as the reference's ggx_lut.png stores it and its shader
+    samples it) and UNORM8 quantisation."""
+    path = os.environ.get("TRTPU_GGX_LUT")
+    if path and os.path.exists(path):
+        try:
+            lut = load_ggx_lut_png(path)
+            return _box_downsample(lut, size) if size else lut
+        except (OSError, ValueError, IndexError, struct.error, zlib.error):
+            pass
     lut = compute_ggx_lut()[::-1].copy()  # textbook -> asset orientation
     lut = np.round(lut * 255.0).astype(np.float32) / np.float32(255.0)
     return _box_downsample(lut, size) if size else lut

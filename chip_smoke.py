@@ -244,6 +244,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    10 after 2 on the host clock (ranks sharing one card say nothing about
    scaling). --sharded-cards runs the frame on 2 and 4 ranks with a card
    each (NCCL) against render_frame, on a four-card machine.
+16. pair-stream compaction and the frontier traversal: (a) the flagship
+   with pallas_pair_cap_frac (compaction_phase): its binning call's
+   stream compacted at PAIR_FIT_FRAC equals the uncompacted valid prefix
+   (tile_start equal); the frame launches raster 2, tap 1, shade 2, fetch
+   1, reports the binning's pair_demand and pair_capacity, no overflow,
+   and equals phase 5's frame bit for bit; at PAIR_OVERFLOW_FRAC the
+   frame reports pair_demand past pair_capacity and stays finite in [0,
+   1]; the binning and payload spans and the frame, with and without
+   compaction, median of 10 after 2 in turns (CUDA events); (b) the RT
+   flagship's opaque shadow rays (phase 7's first kernel-5 call) through
+   ops/bvh.py::trace_shadow_bfs (bfs_phase): hits equal to kernel 5's ray
+   for ray with no frontier overflow (cap_factor from 8, doubled and
+   printed while it overflows); ms of each in turns and the peak memory
+   each allocates.
 
 The kernels JSON object reports every kernel on the widest path that
 launches it, named in its "frame" key: kernels 1-5 on the ray-traced
@@ -2648,6 +2662,229 @@ def sharded_cards() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 16: pair-stream compaction and the frontier traversal
+# ---------------------------------------------------------------------------
+
+# pallas_pair_cap_frac values on the flagship at 1080p: a capacity that
+# holds its valid pairs, and one (the 65,536-slot floor) that does not
+PAIR_FIT_FRAC = 0.5
+PAIR_OVERFLOW_FRAC = 0.01
+
+
+def binning_calls(frame) -> list:
+    """The arguments of each ops/raster.py::bin_triangles call that one
+    run of ``frame()`` makes (render/frame.py's kernel branch)."""
+    from transmission_renderer_tpu_torch.render import frame as frame_mod
+
+    seen, real = [], frame_mod.bin_triangles
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    frame_mod.bin_triangles = spy
+    try:
+        frame()
+    finally:
+        frame_mod.bin_triangles = real
+    return seen
+
+
+def check_compacted_bins(args, frac: float) -> tuple:
+    """One binning call's set-up binned with pallas_pair_cap_frac ``frac``
+    and without: the demand is every valid pair; while it fits the
+    capacity, the compacted sorted stream equals the uncompacted one's
+    valid prefix (sentinels past it) and tile_start is equal; past it, the
+    stream holds the capacity's pairs. -> (demand, capacity, the
+    uncompacted stream's length)."""
+    import torch
+    from transmission_renderer_tpu_torch.ops.raster import bin_triangles
+
+    args = args[:7]
+    plain = bin_triangles(*args)
+    got = bin_triangles(*args, frac)
+    s_len = plain.sorted_tri_ids.shape[0]
+    demand, cap = int(got.pair_demand), got.pair_capacity
+    require(0 < cap < s_len and got.sorted_tri_ids.shape[0] == cap,
+            f"pair compaction at {frac}: capacity {cap} of a {s_len}-slot stream")
+    require(demand == int(plain.tile_start[-1]),
+            f"pair demand {demand}, the stream's valid pairs {int(plain.tile_start[-1])}")
+    if demand <= cap:
+        require(torch.equal(got.tile_start, plain.tile_start),
+                "compacted tile_start differs from the uncompacted one")
+        require(torch.equal(got.sorted_tri_ids[:demand], plain.sorted_tri_ids[:demand]),
+                "compacted sorted stream differs from the uncompacted valid prefix")
+        require(bool((got.sorted_tri_ids[demand:] == -1).all()),
+                "compacted stream: a non-sentinel past the demand")
+    else:
+        require(int(got.tile_start[-1]) == cap, "overflowing compaction: stream not full")
+    return demand, cap, s_len
+
+
+def span_turns(frames: dict, names: tuple, warmups: int, reps: int) -> dict:
+    """ms of each frame and of its passes ``names`` on the GPU timeline
+    (CUDA events around the frame and inside render/frame.py's
+    pass_scope), the frames of ``frames`` run in turns, their order
+    alternating, ``reps`` runs each after ``warmups`` -> {key: {"frame" or
+    pass name: [ms]}}."""
+    import contextlib
+
+    import torch
+    from transmission_renderer_tpu_torch.render import frame as frame_mod
+
+    real, marks = frame_mod.pass_scope, {}
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    @contextlib.contextmanager
+    def scope(name):
+        with real(name):
+            start = event() if name in names else None
+            yield
+            if start is not None:
+                marks[name] = (start, event())
+
+    out = {k: {n: [] for n in ("frame",) + names} for k in frames}
+    frame_mod.pass_scope = scope
+    try:
+        for i in range(warmups + reps):
+            for key in (list(frames) if i % 2 == 0 else list(frames)[::-1]):
+                marks.clear()
+                start = event()
+                frames[key]()
+                end = event()
+                end.synchronize()
+                if i >= warmups:
+                    out[key]["frame"].append(start.elapsed_time(end))
+                    for n in names:
+                        out[key][n].append(marks[n][0].elapsed_time(marks[n][1]))
+    finally:
+        frame_mod.pass_scope = real
+    return out
+
+
+def compaction_phase(card: str, base: dict) -> None:
+    """Phase 16(a): the flagship with pair-stream compaction at 1920x1080.
+    The binning call's stream compacted at PAIR_FIT_FRAC equals the
+    uncompacted valid prefix; the frame launches the flagship's kernels
+    and equals phase 5's bit for bit, no overflow; at PAIR_OVERFLOW_FRAC
+    the overflow is reported and the image stays finite in [0, 1]; the
+    binning and payload spans and the frame, with and without, in turns."""
+    import dataclasses
+
+    import torch
+    from transmission_renderer_tpu_torch.config import RenderConfig
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+
+    scene, dl, flags, params, lights = (base[k] for k in ("scene", "dl", "flags", "params",
+                                                          "lights"))
+    cfg = RenderConfig(width=1920, height=1080)
+
+    def frame_at(frac, **kw):
+        c = dataclasses.replace(cfg, pallas_pair_cap_frac=frac)
+        return render_frame(scene, dl, params, lights, c, flags=flags, **kw)
+
+    calls = binning_calls(lambda: frame_at(None))
+    require(len(calls) == 1, f"the flagship made {len(calls)} binning calls, expected 1")
+    demand, cap, s_len = check_compacted_bins(calls[0], PAIR_FIT_FRAC)
+    log(f"compaction (a): stream {s_len} slots, pair_demand {demand}, pair_capacity {cap} "
+        f"at pallas_pair_cap_frac {PAIR_FIT_FRAC}; the sorted stream equals the "
+        f"uncompacted valid prefix, tile_start equal")
+    require(demand <= cap, f"pair demand {demand} past the capacity {cap}")
+    (img, diag), launches = count_launches(port_handles()[:4], lambda: frame_at(
+        PAIR_FIT_FRAC, return_diagnostics=True))
+    expect = {"raster_gbuf": 2, "tap_finish": 1, "shade": 2, "transmission_fetch": 1}
+    log(f"compaction (a): launches {launches}; FrameDiagnostics pair_demand "
+        f"{int(diag.pair_demand)}, pair_capacity {diag.pair_capacity}, overflowed "
+        f"{diag.overflowed()}; image equal to phase 5's: {torch.equal(img, base['img'])}")
+    require(launches == expect, f"compaction launch counts {launches}, expected {expect}")
+    require((int(diag.pair_demand), diag.pair_capacity) == (demand, cap),
+            "compaction: the frame's diagnostics differ from its binning's")
+    require(not diag.overflowed(), f"compaction: capacity overflow {diag}")
+    require(torch.equal(img, base["img"]), "the compacted frame differs from phase 5's")
+
+    over_demand, over_cap, _ = check_compacted_bins(calls[0], PAIR_OVERFLOW_FRAC)
+    img_o, diag_o = frame_at(PAIR_OVERFLOW_FRAC, return_diagnostics=True)
+    lo, hi = float(img_o.min()), float(img_o.max())
+    log(f"compaction (a) overflow at pallas_pair_cap_frac {PAIR_OVERFLOW_FRAC}: pair_demand "
+        f"{int(diag_o.pair_demand)} > pair_capacity {diag_o.pair_capacity}, overflowed "
+        f"{diag_o.overflowed()}, image in [{lo:.4f}, {hi:.4f}], "
+        f"{int((img_o != base['img']).any(dim=-1).sum())} pixels moved")
+    require(diag_o.overflowed() and int(diag_o.pair_demand) > diag_o.pair_capacity
+            and (int(diag_o.pair_demand), diag_o.pair_capacity) == (over_demand, over_cap),
+            "compaction: the forced overflow is not reported")
+    require(bool(torch.isfinite(img_o).all()) and 0.0 <= lo and hi <= 1.0,
+            "compaction: the overflowing frame is not finite in [0, 1]")
+
+    spans = ("binning", "payload")
+    times = span_turns({"uncompacted": lambda: frame_at(None),
+                        "compacted": lambda: frame_at(PAIR_FIT_FRAC)}, spans, 2, 10)
+    for key, t in times.items():
+        log(f"compaction timing on [{card}] ({key}): median of 10 after 2, in turns, "
+            + ", ".join(f"{n} {statistics.median(t[n]):.3f} ms" for n in spans)
+            + f", frame {statistics.median(t['frame']):.3f} ms "
+              f"(min {min(t['frame']):.3f}, max {max(t['frame']):.3f})")
+    log(json.dumps({"compaction_ms": {k: {n: statistics.median(v) for n, v in t.items()}
+                                      for k, t in times.items()},
+                    "stream": s_len, "pair_demand": demand, "pair_capacity": cap,
+                    "card": card}))
+
+
+def bfs_phase(card: str, call, tri_vertices, positions) -> None:
+    """Phase 16(b): ops/bvh.py::trace_shadow_bfs on the rays of a
+    recorded kernel-5 call (the RT flagship's opaque pass): hits equal to
+    kernel 5's ray for ray with no overflow (cap_factor from 8, doubled
+    while the frontier overflows); ms of each, in turns, and the peak
+    memory each allocates."""
+    import torch
+    from transmission_renderer_tpu_torch.ops import bvh_packet
+    from transmission_renderer_tpu_torch.ops.bvh import trace_shadow_bfs
+
+    (tree, _, rays, t_min), _ = call
+    want = bvh_packet.KERNEL.replay(call, True)
+    o, d, tm = rays[0:3].T, rays[6:9].T, rays[9]
+    cap_factor = 8
+
+    def bfs():
+        return trace_shadow_bfs(tree, tri_vertices, positions, o, d, t_min, tm,
+                                cap_factor=cap_factor)
+
+    while True:
+        hit, over = bfs()
+        if int(over) == 0:
+            break
+        log(f"bfs: cap_factor {cap_factor} overflows the frontier by {int(over)}; doubling")
+        cap_factor *= 2
+        require(cap_factor <= 64, "bfs: the frontier overflows at cap_factor 64")
+    bad = int((hit != want).sum())
+    log(f"bfs (b): {rays.shape[1]} rays ({int((tm > t_min).sum())} live), cap_factor "
+        f"{cap_factor}, overflow 0, hits {int(hit.sum())}, differing from kernel 5's {bad}")
+    require(bad == 0, "bfs: the frontier traversal's hits differ from kernel 5's")
+
+    def peak_mb(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+    kernel5 = lambda: bvh_packet.KERNEL.replay(call, True)  # noqa: E731
+    turns = [cuda_ms(fn, 1, warmup=False) for fn in (bfs, kernel5, kernel5, bfs)]
+    bfs_ms, k5_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    mem = {"bfs": peak_mb(bfs), "kernel5": peak_mb(kernel5)}
+    log(f"bfs timing on [{card}]: trace_shadow_bfs {bfs_ms:.3f} ms, kernel 5 (bvh_occlusion) "
+        f"{k5_ms:.3f} ms on the same {rays.shape[1]} rays, in turns (bfs, kernel 5, kernel 5, "
+        f"bfs: {', '.join(f'{t:.3f}' for t in turns)}); peak memory allocated beyond the "
+        f"inputs: bfs {mem['bfs']:.1f} MiB, kernel 5 {mem['kernel5']:.1f} MiB")
+    log(json.dumps({"bfs_ms": bfs_ms, "kernel5_ms": k5_ms, "cap_factor": cap_factor,
+                    "peak_mib": mem, "rays": rays.shape[1], "card": card}))
+
+
 def port_handles() -> tuple:
     """Every kernel's handle: the flagship's four, then the occlusion
     walk (ray-traced frames), the visibility raster (vis frames) and the
@@ -3049,6 +3286,11 @@ def main() -> int:
         "bvh": bvh})
     for row in kernel_rows:  # the one-rank sharded flagship's calls
         row["sharded"] = sharded[row["name"]]
+
+    # ---- 16. pair-stream compaction; the frontier traversal beside kernel 5 ------
+    compaction_phase(card, {"scene": scene, "dl": dl, "flags": flags, "params": params,
+                            "lights": lights, "img": img})
+    bfs_phase(card, rt_calls["bvh_occlusion"][0], dl.tri_vtx, world_pos)
 
     for row in kernel_rows:  # the worst over every frame checked
         row["max_abs_err"] = max_err[row["name"]]

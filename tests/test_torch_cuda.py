@@ -13,7 +13,9 @@ bit for bit against its plain version (its trilinear tap is
 atlas_tap.cuh's, shared with kernel 6's alpha form); kernel 6's alpha
 form and its checked form on the stress scene's visibility-buffer frame
 at 256x144 (bit for bit, the checked frame silent and equal, injected
-out-of-range indices reported through the error word).
+out-of-range indices reported through the error word); pair-stream
+compaction of the 1080p flagship's binning call (the valid prefix, the
+overflow).
 Marked ``cuda``: on a host without a CUDA device they skip (the check
 runs inside the fixture, never at import).
 
@@ -1125,3 +1127,36 @@ def test_vis_clip_checked_form(clip_captured):
         got = raster_vis.KERNEL.replay(calls[0], True)
     assert found == []
     _vis_compare(got, raster_vis.KERNEL.replay(calls[0], False), min_covered=100)
+
+
+# ---------------------------------------------------------------------------
+# pair-stream compaction on the flagship's set-up (chip_smoke.py phase 16)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def flagship_binning():
+    """The 1080p flagship's binning call on the card (its arguments, as
+    render_frame makes it) and chip_smoke.py as a module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+
+    smoke = _smoke()
+    _, scene, dl, flags, params, lights = smoke.flagship_scene(torch.device("cuda"))
+    cfg = RenderConfig(width=1920, height=1080)
+    calls = smoke.binning_calls(
+        lambda: render_frame(scene, dl, params, lights, cfg, flags=flags))
+    assert len(calls) == 1
+    return smoke, calls[0]
+
+
+@pytest.mark.parametrize("frac", [0.5, 0.01])
+def test_pair_compaction_on_the_flagship_setup(flagship_binning, frac):
+    """Compacted at 0.5, the sorted stream equals the uncompacted one's
+    valid prefix and tile_start is equal; at 0.01 (the 65,536-slot
+    floor) the demand overflows the capacity and the stream is full
+    (chip_smoke.check_compacted_bins raises on any difference)."""
+    smoke, args = flagship_binning
+    demand, cap, s_len = smoke.check_compacted_bins(args, frac)
+    assert 0 < cap < s_len
+    assert (demand <= cap) == (frac == 0.5)

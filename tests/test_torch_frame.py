@@ -154,10 +154,11 @@ def test_sparse_block_helpers_match_reference():
 
 
 def test_unported_branches_refuse():
-    """The branches outside the port raise NotImplementedError (no silent
-    detour): the G-buffer kernel with tiles other than 8x128, and
-    pair-stream compaction. Alpha clip on the visibility-buffer branch
-    (ROADMAP queue 1, item 6a) renders since it was ported: here the
+    """The branch outside the port raises NotImplementedError (no silent
+    detour): the G-buffer kernel with tiles other than 8x128. (Pair-stream
+    compaction renders since it was ported:
+    tests/test_torch_pair_compaction.py.) Alpha clip on the
+    visibility-buffer branch (ROADMAP queue 1, item 6a) renders since it was ported: here the
     dragon with the flag on and no clip-bucket triangle gives the frame
     without it, bit for bit (tests/test_torch_vis_clip.py holds the stress
     scene to the reference). (The quality flags, every width, the dense
@@ -179,10 +180,8 @@ def test_unported_branches_refuse():
                            flags=flags._replace(has_alpha_clip=True))
     assert bool(torch.isfinite(clipped).all())
     assert torch.equal(clipped, render_frame(scene, dl, params, lights, vis, flags=flags))
-    for bad, fl, why in (
-            (dataclasses.replace(CFG, tile_w=32), flags, "8x128"),
-            (dataclasses.replace(CFG, pallas_pair_cap_frac=0.5), flags, "left out")):
-        params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,
-                                   rig.sun_dir(), device="cpu")
-        with pytest.raises(NotImplementedError, match=why):
-            render_frame(scene, dl, params, lights, bad, flags=fl)
+    bad = dataclasses.replace(CFG, tile_w=32)
+    params = make_frame_params(bad, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device="cpu")
+    with pytest.raises(NotImplementedError, match="8x128"):
+        render_frame(scene, dl, params, lights, bad, flags=flags)

@@ -4,10 +4,7 @@ Counterpart of ``transmission_renderer_tpu/config.py``: the same
 ``RenderConfig`` dataclass (every field, default and property) and the
 same ``BUCKET_*`` constants, kept as the port's own copy so that the port
 imports nothing of the JAX package. The comments are shortened; the
-reference's file explains each knob at length. Fields that steer a
-branch the port does not run (``pallas_pair_cap_frac``) are kept so that
-one configuration means the same in both packages;
-``render/frame.py::_check_branch`` refuses them by name.
+reference's file explains each knob at length.
 """
 
 from __future__ import annotations
@@ -58,7 +55,9 @@ class RenderConfig:
     # full-screen catch-all. Rung overflow drops draws and shows in
     # FrameDiagnostics.tier_overflow.
     pallas_tiers: tuple = ((8, 4096), (128, 512), (2048, 64), (0, 16))
-    # pair-stream compaction before the binning sort (None = off)
+    # pair-stream compaction before the kernel branch's binning sort
+    # (ops/raster.py::bin_triangles; None = off; the row-band sharded
+    # frame ignores it, as the reference's does)
     pallas_pair_cap_frac: float | None = None
 
     # rasteriser backend: None = auto, True/False force the G-buffer

@@ -8,7 +8,9 @@ any-hit, no-alpha-test walk of ``trace_rays(any_hit=True)`` as
 ``occlusion_walk`` / ``trace_occlusion_plain``, and the AS-debug
 caster's closest-hit, alpha-tested walk of ``trace_rays(any_hit=False,
 alpha_test_fn=...)`` as ``closest_walk`` / ``trace_closest_plain`` (the
-plain version of ops/bvh_closest.py's kernel).
+plain version of ops/bvh_closest.py's kernel), and the level-synchronous
+frontier traversal ``trace_shadow_bfs`` (nothing in the frame calls it,
+as in the reference).
 
 Topology is implicit: triangles are Morton-sorted by centroid and packed
 ``LEAF_TRIS`` per leaf row; level-k node i's children are the level-(k-1)
@@ -43,6 +45,8 @@ MAX_LEVELS = 7
 # rays per chunk of the plain walk (bounds its temporaries: 6.2M rays of
 # a 1080p frame's three ray kinds go through in 24 chunks)
 RAY_CHUNK = 1 << 18
+# rays per frontier chunk of trace_shadow_bfs (the reference's)
+_BFS_CHUNK = 1 << 17
 
 
 @dataclasses.dataclass(frozen=True)
@@ -491,3 +495,97 @@ def trace_closest_plain(bvh: BVH, table, rays: torch.Tensor, t_min: float,
     """(hit, t, tri id, u, v) of the plain closest-hit walk: the plain
     version of the closest-hit kernel (ops/bvh_closest.py)."""
     return closest_walk(bvh, table, rays, t_min, alpha_test_fn)[:5]
+
+
+def trace_shadow_bfs(bvh: BVH, tri_vertices: torch.Tensor, positions: torch.Tensor,
+                     origins: torch.Tensor, directions: torch.Tensor, t_min: float = 0.001,
+                     t_max=10_000.0, chunk: int | None = None, cap_factor: int = 8):
+    """Any-hit occlusion by level-synchronous frontier traversal -> (hit
+    [...] bool, overflow [] int32): the reference's ``trace_shadow_bfs``
+    (ops/bvh.py:723-870), in torch ops on the inputs' device.
+
+    One flat round per tree level: every live (ray, node) pair of the
+    frontier tests its WIDE children, and the hit ones are compacted in
+    order (an inclusive cumsum, then a scatter to unique indices) into
+    the next frontier, a static ``cap_factor * chunk`` entries; then one
+    leaf round tests LEAF_TRIS triangles per entry and a scatter-max per
+    ray gives the hit. The hit set is the any-hit walk's (the same slab
+    test and Moller-Trumbore, no alpha test). A round whose survivors
+    exceed the frontier drops the excess and reports it: ``overflow`` is
+    the largest excess over rounds and chunks (0: exact). Rays run in
+    chunks of ``chunk`` (default ``_BFS_CHUNK``) when there are more;
+    padding rays (t_max 0) are dead but fill the first frontier, as the
+    reference's do."""
+    shape = origins.shape[:-1]
+    dev = origins.device
+    o = origins.reshape(-1, 3)
+    d = directions.reshape(-1, 3)
+    n = o.shape[0]
+    tm = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=dev),
+                            shape).reshape(-1)
+    inv = inverse_directions(d)
+    v = positions[tri_vertices[bvh.leaf_tri.reshape(-1).long()].long()]  # [L*16, 3, 3]
+    leaf_tris = torch.stack([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], dim=1)
+    leaf_tris = leaf_tris.reshape(bvh.num_leaves, LEAF_TRIS, 3, 3)
+    chunk = min(int(chunk or _BFS_CHUNK), max(n, 1))
+    cap = cap_factor * chunk
+    if n <= chunk:
+        hit, overflow = _bfs_chunk(bvh, leaf_tris, o, inv, d, tm, float(t_min), cap)
+        return hit.reshape(shape), overflow
+    pad = (-n) % chunk
+
+    def padded(a, value):
+        return torch.cat([a, a.new_full((pad,) + a.shape[1:], value)])
+
+    o, inv, d, tm = padded(o, 0.0), padded(inv, 1e20), padded(d, 1.0), padded(tm, 0.0)
+    hits, overflow = [], torch.zeros((), dtype=torch.int32, device=dev)
+    for s in range(0, n + pad, chunk):
+        h, ov = _bfs_chunk(bvh, leaf_tris, o[s : s + chunk], inv[s : s + chunk],
+                           d[s : s + chunk], tm[s : s + chunk], float(t_min), cap)
+        hits.append(h)
+        overflow = torch.maximum(overflow, ov)
+    return torch.cat(hits)[:n].reshape(shape), overflow
+
+
+def _bfs_chunk(bvh: BVH, leaf_tris, o, inv, d, tm, t_min: float, cap: int):
+    """One chunk of ``trace_shadow_bfs``: (hit [R] bool, overflow [] int32)."""
+    dev = o.device
+    r = o.shape[0]
+    iota = torch.arange(cap, dtype=torch.int64, device=dev)
+    lanes_w = torch.arange(WIDE, dtype=torch.int64, device=dev)
+    # the frontier: (ray, node) pairs, entries at and past `count` dead
+    ray_f = torch.where(iota < r, iota, 0)
+    node_f = torch.zeros(cap, dtype=torch.int64, device=dev)
+    count = torch.tensor(r, dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for lvl in range(bvh.num_levels, 0, -1):
+        valid = iota < count
+        safe = torch.clamp(node_f, 0, bvh.level_counts[lvl - 1] - 1)
+        boxes = bvh.node_boxes[bvh.level_offsets[lvl - 1] + safe].reshape(cap, WIDE, 6)
+        h8 = _ray_aabb(o[ray_f][:, None], inv[ray_f][:, None], tm[ray_f][:, None],
+                       boxes[..., :3], boxes[..., 3:])
+        child = node_f[:, None] * WIDE + lanes_w[None]
+        m = (h8 & (child < bvh.children_below(lvl - 1)) & valid[:, None]).reshape(-1)
+        pos = torch.cumsum(m.to(torch.int32), 0)
+        new_count = pos[-1]
+        # kept items go to their rank (unique, in order); the rest to
+        # unique slots past the frontier, sliced away
+        dst = torch.where(m, pos - 1, cap + torch.arange(m.shape[0], device=dev))
+        nxt = torch.zeros((2, cap + m.shape[0]), dtype=torch.int64, device=dev)
+        nxt[0, dst] = child.reshape(-1)
+        nxt[1, dst] = ray_f[:, None].expand(cap, WIDE).reshape(-1)
+        node_f, ray_f = nxt[0, :cap], nxt[1, :cap]
+        overflow = torch.maximum(overflow, new_count - cap)
+        count = torch.clamp(new_count, max=cap)
+
+    # the leaf round: LEAF_TRIS triangles per frontier entry
+    valid = iota < count
+    safe = torch.clamp(node_f, 0, bvh.num_leaves - 1)
+    tv = leaf_tris[safe]
+    h16, _ = _ray_tri(o[ray_f][:, None], d[ray_f][:, None], t_min, tm[ray_f][:, None],
+                      tv[:, :, 0], tv[:, :, 1], tv[:, :, 2])
+    lanes_t = torch.arange(LEAF_TRIS, dtype=torch.int64, device=dev)
+    h16 = h16 & (lanes_t[None] < bvh.num_tris - safe[:, None] * LEAF_TRIS) & valid[:, None]
+    ray_hit = torch.zeros(r, dtype=torch.int32, device=dev)
+    ray_hit.scatter_reduce_(0, ray_f, h16.any(dim=1).to(torch.int32), "amax")
+    return ray_hit.bool(), overflow.to(torch.int32)

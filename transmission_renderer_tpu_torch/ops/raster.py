@@ -5,7 +5,8 @@ Counterpart of ``transmission_renderer_tpu/ops/raster.py``:
 off-screen culls, tile bounding boxes), ``VisibilityBuffer``, both modes
 of ``bin_triangles`` (``bin_triangles``: the G-buffer kernel path's
 ``materialize=False`` mode with class-split bins, the ``pallas_tiers``
-demotion ladder and no pair compaction; ``bin_triangles_materialized``:
+demotion ladder and the optional pair-stream compaction
+(``pair_cap_frac``); ``bin_triangles_materialized``:
 the visibility-buffer path's ``materialize=True`` mode with capped
 per-tile lists and a separate big-triangle list) and
 ``tile_image`` / ``untile_image``.
@@ -28,6 +29,9 @@ from transmission_renderer_tpu_torch.render import checks
 
 BIN_GATHER_SITE = ("ops/raster.py::bin_triangles_materialized: a tile's list slot past "
                    "the sorted pairs")
+# the pair-stream compaction's least capacity (the reference's): shorter
+# streams are not compacted
+PAIR_CAP_FLOOR = 1 << 16
 
 class TriangleSetup(NamedTuple):
     """Per-triangle rasterisation constants (all [T, ...])."""
@@ -63,6 +67,11 @@ class TileBins(NamedTuple):
     # the per-tile counts clamped to max_tris_per_tile
     tile_tri_ids: torch.Tensor | None = None
     tile_tri_count: torch.Tensor | None = None
+    # pair-stream compaction (``bin_triangles(pair_cap_frac=...)``): the
+    # valid pairs, unclamped, against the compacted stream's static
+    # length (demand > capacity = dropped pairs; capacity 0: not compacted)
+    pair_demand: torch.Tensor | int = 0
+    pair_capacity: int = 0
 
 
 def _adjugate3(m: torch.Tensor) -> torch.Tensor:
@@ -186,6 +195,7 @@ def bin_triangles(
     class_flags: torch.Tensor,  # [T] int in [0, num_classes)
     num_classes: int,
     tiers: tuple,
+    pair_cap_frac: float | None = None,
 ) -> TileBins:
     """Sort-based class-split binning with the demotion tier ladder.
 
@@ -193,6 +203,13 @@ def bin_triangles(
     ones demote to the first rung of ``tiers`` ((tile_cap, max_tris),
     cap 0 = full screen) whose cap holds their coverage, and emit cap
     slots each. Rung overflow drops draws; ``tier_demands`` reports it.
+
+    With ``pair_cap_frac`` the slot stream (mostly sentinels) is
+    compacted before the sort to its valid pairs, in stream order, in a
+    static buffer of ``max(int(len * frac) + 1, PAIR_CAP_FLOOR)`` slots
+    (when that is shorter than the stream): exact while the valid pairs
+    fit, else the last ones in stream order are dropped and
+    ``pair_demand`` > ``pair_capacity`` reports it.
     """
     if not tiers or tiers[-1][0] != 0:
         raise ValueError("the tier ladder must end in the full-screen rung (cap 0)")
@@ -247,11 +264,20 @@ def bin_triangles(
         parts_b.append(b)
         parts_t.append(t)
     giant_demand = demands[-1]
+    flat_bins = torch.cat(parts_b)
     flat_tris = torch.cat(parts_t)
     flat_tris = torch.where(flat_tris >= num_tris, -1, flat_tris)
-    sorted_tris, tile_start = _sort_pairs(torch.cat(parts_b), flat_tris, n_bins)
-    raw_counts = tile_start[1:] - tile_start[:-1]
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    pair_demand, pair_capacity = zero, 0
+    if pair_cap_frac is not None:
+        s_len = flat_bins.shape[0]
+        cap = min(s_len, max(int(s_len * pair_cap_frac) + 1, PAIR_CAP_FLOOR))
+        if cap < s_len:
+            flat_bins, flat_tris, pair_demand = _compact_pairs(flat_bins, flat_tris,
+                                                               n_bins, cap)
+            pair_capacity = cap
+    sorted_tris, tile_start = _sort_pairs(flat_bins, flat_tris, n_bins)
+    raw_counts = tile_start[1:] - tile_start[:-1]
     return TileBins(
         sorted_tri_ids=sorted_tris,
         tile_start=tile_start,
@@ -261,7 +287,29 @@ def bin_triangles(
         mid_tri_count=zero,
         tier_demands=tuple(demands),
         tier_slots=tuple(mn for _, _, mn in spans),
+        pair_demand=pair_demand,
+        pair_capacity=pair_capacity,
     )
+
+
+def _compact_pairs(flat_bins, flat_tris, n_bins: int, capacity: int):
+    """The valid (bin < n_bins) pairs of the slot stream, in stream order,
+    in the first slots of a ``capacity``-slot stream (sentinel bin n_bins,
+    tri -1 past them; the last valid pairs dropped past the capacity) ->
+    (bins, tris, demand [] int32: every valid pair). Each slot goes to a
+    unique index (its rank, or past the end, sliced away), so the scatter
+    is deterministic on the card."""
+    s_len = flat_bins.shape[0]
+    valid = flat_bins < n_bins
+    pos = torch.cumsum(valid.to(torch.int32), 0) - 1
+    demand = (pos[-1] + 1).to(torch.int32)
+    arange_s = torch.arange(s_len, dtype=torch.int64, device=flat_bins.device)
+    tgt = torch.where(valid & (pos < capacity), pos, capacity + arange_s)
+    bins = flat_bins.new_full((capacity + s_len,), n_bins)
+    tris = flat_tris.new_full((capacity + s_len,), -1)
+    bins[tgt] = flat_bins
+    tris[tgt] = flat_tris
+    return bins[:capacity], tris[:capacity], demand
 
 
 def _sort_pairs(flat_bins: torch.Tensor, flat_tris: torch.Tensor, n_bins: int):

@@ -568,7 +568,8 @@ def render_frame_sharded(
             setup = setup_triangles(clip, dl.tri_vtx, mask_all, w, h, tw, th)
             # the single frame's tier ladder (the reference's sharded frame
             # keeps a 512-slot mid list, which the 1080p flagship
-            # overflows: ROADMAP, Faults)
+            # overflows: ROADMAP, Faults); no pair-stream compaction, as
+            # the reference's sharded frame passes no pair_cap_frac
             bins = bin_triangles(setup, tiles_x, tiles_y_padded, config.pallas_tiles_per_tri,
                                  tri_class, num_classes, config.pallas_tiers)
         diag["big"] = bins.big_tri_count.to(torch.int32)

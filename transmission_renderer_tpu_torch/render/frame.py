@@ -46,9 +46,12 @@ pyramid (no level set); and the quality flags (``half_res_refraction``,
 sends to the tensor shade. A pass shades through the kernels only at
 widths that are multiples of 128 (single-row 128-px blocks).
 
-Two branches raise NotImplementedError, saying why: the G-buffer kernel
-with tiles other than its fixed 8x128, and pair-stream compaction (left
-out of the port). The port never takes a silent detour.
+The kernel branch's binning compacts its pair stream before the sort
+when ``pallas_pair_cap_frac`` is set (frame.py:1093-1105,
+ops/raster.py::bin_triangles), reporting ``pair_demand`` against
+``pair_capacity``. One branch raises NotImplementedError, saying why:
+the G-buffer kernel with tiles other than its fixed 8x128. The port
+never takes a silent detour.
 """
 
 from __future__ import annotations
@@ -511,18 +514,13 @@ def _cluster_lights(config: RenderConfig, params: FrameParams, lights: Lights, d
 
 
 def _check_branch(config: RenderConfig, flags: SceneFlags, use_pallas: bool) -> None:
-    """Refuse the branches of the reference frame this port lacks."""
-    def refuse(what, why):
-        raise NotImplementedError(f"{what}: {why}")
-
-    if not use_pallas:
-        return
-    if (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
-        refuse(f"the G-buffer kernel with {config.tile_h}x{config.tile_w} tiles",
-               "its tile is 8x128, as the reference kernel's")
-    if config.pallas_pair_cap_frac is not None:
-        refuse("pair-stream compaction", "left out of the port (measured negative "
-               "in the reference)")
+    """Refuse the one branch of the reference frame this port lacks: the
+    kernel branch with tiles other than 8x128 (which the reference's auto
+    branch never picks and its kernel cannot run)."""
+    if use_pallas and (config.tile_w, config.tile_h) != (TILE_W, TILE_H):
+        raise NotImplementedError(
+            f"the G-buffer kernel with {config.tile_h}x{config.tile_w} tiles: its tile "
+            "is 8x128, as the reference kernel's")
 
 
 def _fused_transmission(config: RenderConfig, flags: SceneFlags) -> bool:
@@ -869,7 +867,7 @@ def render_frame(
                                     config.tile_h)
             bins = bin_triangles(
                 setup, tiles_x, tiles_y, config.pallas_tiles_per_tri, tri_class,
-                num_classes, config.pallas_tiers,
+                num_classes, config.pallas_tiers, config.pallas_pair_cap_frac,
             )
             tier_overflow = zero
             for demand, slots in zip(bins.tier_demands, bins.tier_slots):
@@ -1113,14 +1111,16 @@ def render_frame(
                         big_tri_capacity=config.pallas_tiers[-1][1],
                         mid_tri_count=bins.mid_tri_count,
                         mid_tri_capacity=config.pallas_max_mid_tris,
-                        tier_overflow=tier_overflow)
+                        tier_overflow=tier_overflow, pair_demand=bins.pair_demand,
+                        pair_capacity=bins.pair_capacity)
         else:
             passes = (bins_o, bins_t) if flags.has_transmission else (bins_o,)
             diag = dict(
                 max_bin_count=torch.stack([b.max_bin_count for b in passes]).max(),
                 big_tri_count=torch.stack([b.big_tri_count for b in passes]).max(),
                 big_tri_capacity=config.max_big_tris, mid_tri_count=zero,
-                mid_tri_capacity=0, tier_overflow=zero)
+                mid_tri_capacity=0, tier_overflow=zero, pair_demand=zero,
+                pair_capacity=0)
         clip_on = use_pallas and flags.has_alpha_clip
         out += (FrameDiagnostics(
             bin_capacity=config.max_tris_per_tile,
@@ -1136,8 +1136,6 @@ def render_frame(
                                          config.sparse_raster_tile_floor) if clip_on else 0,
             clip_round_demand=clip_rounds[0] if clip_rounds else (),
             clip_round_caps=clip_rounds[1] if clip_rounds else (),
-            pair_demand=zero,
-            pair_capacity=0,
             **diag,
         ),)
     return out[0] if len(out) == 1 else out

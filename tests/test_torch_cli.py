@@ -209,10 +209,11 @@ def test_no_card_exits_nonzero(tmp_path, monkeypatch, capsys):
 
 
 def test_parser_matches_reference():
-    """Every flag of the reference's parser, with its default."""
+    """Every flag of the reference's parser, with its default, and the
+    port's own ``--spans`` (the frame tracer's trace), off by default."""
     ref = {a.dest: a.default for a in jcli.build_parser()._actions}
     got = {a.dest: a.default for a in cli.build_parser()._actions}
-    assert got == ref
+    assert got == {**ref, "spans": None}
 
 
 # ---------------------------------------------------------------------------

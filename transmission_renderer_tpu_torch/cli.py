@@ -48,7 +48,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     """The reference's parser (cli.py:22-148): every flag, name and
-    default."""
+    default, and the port's ``--spans``."""
     p = argparse.ArgumentParser(
         prog="transmission-renderer-tpu-torch",
         description="PyTorch + CUDA forward-plus glTF PBR renderer "
@@ -129,6 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="Capture a torch.profiler Chrome trace of the frame loop into "
                    "DIR/trace.json; per-pass ranges carry the reference's pass names")
+    # the port's own: not in the reference's parser
+    p.add_argument("--spans", metavar="PATH", default=None,
+                   help="Run the frame loop under the frame tracer and write its pass "
+                   "spans to PATH as a Chrome trace: host and device on one clock, "
+                   "without the profiler's cost")
     return p
 
 
@@ -346,6 +351,8 @@ def _run(args, dev, frames_out, mesh=None) -> int:
         ldr = apply_overlays(render(s, dl, params, lt)).cpu().numpy()
         check_frame(ldr)
         dt = time.time() - t0
+        if tracer is not None:
+            spans.extend(tracer.read())  # the readback above waited for the card
         if rank0:
             write_png(out, linear_to_srgb(ldr))
         if frames_out is not None:
@@ -369,6 +376,7 @@ def _run(args, dev, frames_out, mesh=None) -> int:
                 return
             yield line
 
+    tracer, spans = None, []
     with contextlib.ExitStack() as stack:
         if args.profile and rank0:
             from transmission_renderer_tpu_torch.utils.profiling import trace
@@ -377,6 +385,12 @@ def _run(args, dev, frames_out, mesh=None) -> int:
             stack.callback(print, f"profiler trace written to {args.profile}",
                            file=sys.stderr)
             stack.enter_context(trace(args.profile))
+        if args.spans and rank0:
+            from transmission_renderer_tpu_torch.utils import profiling
+
+            stack.callback(print, f"spans written to {args.spans}", file=sys.stderr)
+            stack.callback(lambda: profiling.write_chrome_trace(spans, args.spans))
+            tracer = stack.enter_context(profiling.tracing(profiling.FrameTracer(dev)))
 
         if args.interactive:
             # headless analogue of the reference's winit loop (src/main.rs:923-1456):

@@ -19,7 +19,8 @@ implementations (the CUDA launch and the plain PyTorch version, with one
 signature), its launch count (a plain integer, raised by one where the
 kernel is launched and nowhere else) and an optional recorder that keeps
 the arguments of each call, so a checker can replay the same inputs
-through both implementations.
+through both implementations. Every handle is listed in ``HANDLES``,
+where the frame tracer (utils/profiling.py) reads the launch counts.
 """
 
 from __future__ import annotations
@@ -46,6 +47,10 @@ NVCC_FLAGS = (
 )
 
 
+# every KernelHandle made, in the order made
+HANDLES: list = []
+
+
 class KernelHandle:
     """One kernel: its implementations and its launch accounting."""
 
@@ -57,6 +62,7 @@ class KernelHandle:
         self.plain = plain  # the plain PyTorch version (any device)
         self.launches = 0
         self.recorder: list | None = None
+        HANDLES.append(self)
 
     def __call__(self, on_cuda: bool, *args, **kwargs):
         """Record the call, then run the kernel for CUDA operands and the

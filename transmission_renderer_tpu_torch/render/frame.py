@@ -147,7 +147,7 @@ from transmission_renderer_tpu_torch.scene.textures import (
 from transmission_renderer_tpu_torch.scene.types import Scene
 from transmission_renderer_tpu_torch.utils.ggx_lut import default_ggx_lut
 from transmission_renderer_tpu_torch.utils.platform import CARD, f32_matmuls, resolve_device
-from transmission_renderer_tpu_torch.utils.profiling import pass_scope
+from transmission_renderer_tpu_torch.utils.profiling import FRAME_SPAN, current_tracer, pass_scope
 
 
 class DrawList(NamedTuple):
@@ -338,6 +338,17 @@ def refraction_level_set(flags: SceneFlags, width: int, num_levels: int):
     return tuple(range(min(levels), max(levels) + 1))
 
 
+# FrameDiagnostics' demand fields beside their capacity fields
+_CAPACITIES = (
+    ("max_bin_count", "bin_capacity"), ("big_tri_count", "big_tri_capacity"),
+    ("opaque_blocks", "opaque_block_capacity"),
+    ("transmission_blocks", "transmission_block_capacity"),
+    ("mid_tri_count", "mid_tri_capacity"),
+    ("transmission_tiles", "transmission_tile_capacity"),
+    ("clip_tiles", "clip_tile_capacity"), ("pair_demand", "pair_capacity"),
+)
+
+
 class FrameDiagnostics(NamedTuple):
     """Runtime capacity diagnostics; a value above its capacity means the
     frame silently lost work. Counts are 0-d tensors or ints."""
@@ -363,19 +374,22 @@ class FrameDiagnostics(NamedTuple):
     pair_demand: object = 0
     pair_capacity: int = 0
 
+    def demands(self) -> dict:
+        """Each demand beside its capacity, as ints: {name: (demand,
+        capacity)}, capacity 0 for the unresolved clip pixels and the tier
+        overflow (which must be 0), and the peel's per-round failing tiles
+        beside the rounds' caps as lists. Reads the device counts."""
+        out = {n: (int(getattr(self, n)), getattr(self, cap)) for n, cap in _CAPACITIES}
+        out["clip_unresolved"] = (int(self.clip_unresolved), 0)
+        out["tier_overflow"] = (int(self.tier_overflow), 0)
+        out["clip_round_demand"] = ([int(d) for d in self.clip_round_demand],
+                                    list(self.clip_round_caps))
+        return out
+
     def overflowed(self) -> bool:
-        checks = [
-            (int(self.max_bin_count), self.bin_capacity),
-            (int(self.big_tri_count), self.big_tri_capacity),
-            (int(self.opaque_blocks), self.opaque_block_capacity),
-            (int(self.transmission_blocks), self.transmission_block_capacity),
-            (int(self.mid_tri_count), self.mid_tri_capacity),
-            (int(self.transmission_tiles), self.transmission_tile_capacity),
-            (int(self.clip_tiles), self.clip_tile_capacity),
-            (int(self.pair_demand), self.pair_capacity),
-        ]
+        counts = ((int(getattr(self, n)), getattr(self, cap)) for n, cap in _CAPACITIES)
         return (
-            any(cap and n > cap for n, cap in checks)
+            any(cap and n > cap for n, cap in counts)
             or int(self.clip_unresolved) > 0
             or int(self.tier_overflow) > 0
         )
@@ -812,7 +826,28 @@ def render_frame(
     the card with 8x128 tiles and the visibility-buffer branch otherwise
     (the reference's choice, with the tensors' device in place of its
     backend); ``config.pallas_shade`` None shades through the kernels on
-    the kernel branch and through tensors on the other."""
+    the kernel branch and through tensors on the other.
+
+    The frame is one ``render_frame`` range (utils/profiling.py::
+    FRAME_SPAN) around its passes' ranges; under an installed FrameTracer
+    its span also carries the frame's diagnostics (``demands()``), read
+    after the caller's sync."""
+    with pass_scope(FRAME_SPAN):
+        tracer = current_tracer()
+        out = _render_frame(scene, dl, params, lights, config, ggx_lut, flags, return_hdr, bvh,
+                            return_diagnostics or tracer is not None)
+        if tracer is None:
+            return out
+        tracer.attach(out[-1].demands)
+    if return_diagnostics:
+        return out
+    return out[0] if len(out) == 2 else out[:-1]
+
+
+def _render_frame(scene: Scene, dl: DrawList, params: FrameParams, lights: Lights,
+                  config: RenderConfig, ggx_lut, flags, return_hdr: bool, bvh,
+                  return_diagnostics: bool):
+    """render_frame's passes."""
     f32_matmuls()
     dev = scene.positions.device
     w, h = config.width, config.height
@@ -926,7 +961,7 @@ def render_frame(
         half = config.half_res_shadow_rays
         if half and (h % 2 or w % 2):
             warnings.warn(f"half_res_shadow_rays requires even framebuffer dims; "
-                          f"{w}x{h} traces FULL-res shadow rays", stacklevel=2)
+                          f"{w}x{h} traces FULL-res shadow rays", stacklevel=3)
         with pass_scope("shadow_rays_opaque"):
             if half and h % 2 == 0 and w % 2 == 0:
                 # trace the half-res grid and upsample the factors; no

@@ -1,5 +1,5 @@
 """Utilities: the GGX LUT, a stdlib PNG codec and JPEG decoder, profiling
-ranges and timers, matmul precision (counterpart of
+ranges and the frame tracer, matmul precision (counterpart of
 ``transmission_renderer_tpu/utils``, with its names: ``save_png`` and
 ``load_png`` are utils/png.py's ``write_png`` and ``read_png``)."""
 

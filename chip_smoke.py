@@ -19,7 +19,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
 
 1. device: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi) and torch.cuda.get_device_name().
-2. build: compiles the seven CUDA kernels (transmission_renderer_tpu_torch/
+2. build: compiles the eight CUDA kernels (transmission_renderer_tpu_torch/
    csrc), one nvcc per source in parallel, into the package's _build/.
 3. scene: the flagship exactly as tests/golden_defs.py::render_hd_golden
    builds it: the procedural DragonAttenuation analogue (roughness 0.25,
@@ -100,11 +100,14 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    branch: alpha-clip depth peeling, the block-sparse opaque shade and the
    non-fused sparse transmissive raster. (a) every kernel call of the
    frame through the kernel and its plain version (kernel 1 bit for bit
-   on its ten calls, the peel's max_depth calls included; the others as
-   phase 4); (b) with the counts reset, the frame launches raster 10
-   (opaque, the class-2 peel's first round and 3 re-races, transmission,
-   the class-3 peel's first round and 3 re-races), tap 1, shade 2, fetch
-   1; (c) FrameDiagnostics at the bench's camera (yaw 0) and at its
+   on its ten calls, the peel's max_depth calls included; the peel's
+   alpha test, csrc/clip_alpha.cu, bit for bit on its eight calls over a
+   random ok state, the rows no slot names left alone: check_clip_alpha;
+   the others as phase 4); (b) with the counts reset, the frame launches
+   raster 10 (opaque, the class-2 peel's first round and 3 re-races,
+   transmission, the class-3 peel's first round and 3 re-races), tap 1,
+   shade 2, fetch 1, clip_alpha 8 (one alpha test per round); (c)
+   FrameDiagnostics at the bench's camera (yaw 0) and at its
    sweep's far end (the bench's smoothed rig after target yaw 0.18,
    bench_rig): the clip caps [608, 162, 41], no capacity overflow but the
    peel's, the clip diagnostics printed beside the reference's
@@ -113,11 +116,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    unresolved pixel) sRGB RMSE < 4e-3 against tests/goldens/stress_hd.png
    (the reference's 1080p frame, rendered on the CPU by its
    visibility-buffer branch); at the bench config the RMSE over the frame
-   and outside the tiles holding unresolved pixels is printed; (e) median
+   and outside the tiles holding unresolved pixels is printed, and the
+   converged frame's 16 alpha tests through check_clip_alpha; (e) median
    ms/frame over 10 frames after 2 warm-ups, per-pass ms (the peel's
-   ranges too) and kernel 1's ms over the frame's calls beside its plain
-   version's and its bound. Its launch counts are printed on a line of
-   their own before the kernels line.
+   ranges too), kernel 1's ms over the frame's calls and the alpha
+   test's over the converged frame's (the benchmark's peel) beside their
+   plain versions' and their bounds. Its launch counts are printed on a
+   line of their own before the kernels line.
 10. the bench's other scenes (bench.py:275-293; BENCH_SCENES): the
    helmet (build_opaque_scene, opaque_block_cap_frac 0.625), the smooth
    glass dragon (roughness 0), attenuation and bindless
@@ -268,7 +273,9 @@ reported in phase 10(f)), the closest-hit walk on the AS-debug dragon
 says so); kernel 4's row also carries its full form on the
 textured-roughness frame ("full_form", phase 12(b)) and kernel 6's its
 alpha form on the visibility-buffer stress frame ("alpha_form", phase
-13), and each row's "sharded" key the one-rank sharded flagship's
+13); the peel's alpha test on the converged stress frame ("stress_conv",
+phase 9(e); it replaces no TPU kernel either), and each row's "sharded"
+key the one-rank sharded flagship's
 launches (phase 15(a); for kernels 1-3 also ms and bound): launches,
 worst parity error over every frame checked, ms per frame of the kernel (the card's time for
 the frame's calls, CUDA events queued behind a spin kernel so that they
@@ -605,6 +612,63 @@ def kernel_work(name: str, call, data=None) -> tuple:
     raise KeyError(name)
 
 
+def tap_texel_keys(rows, tid, uv, lod) -> list:
+    """Keys of the texels a trilinear REPEAT tap of each diffuse ref
+    ``tid`` (packed image | layer << 16) reads at ``uv`` and ``lod``: the
+    2x2 footprint of both levels, one key per (image, layer, level, x, y)."""
+    import torch
+    from transmission_renderer_tpu_torch.ops.texture import _level_meta_from_rows, _tap_footprint
+    from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, LAYER_SHIFT, WRAP_REPEAT
+
+    keys = []
+    l0 = torch.floor(torch.clamp(lod, min=0.0)).to(torch.int32)
+    image = ((tid & IMAGE_MASK).long() * 32 + (tid >> LAYER_SHIFT).long()) * 16
+    for lvl in (l0, l0 + 1):
+        off, w, h = _level_meta_from_rows(rows, lvl)
+        _, _, _, x0, y0 = _tap_footprint(off, w, h, uv, WRAP_REPEAT)
+        level = torch.minimum(torch.clamp(lvl, min=0), rows[:, 0] - 1).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                x, y = ((x0 + dx) % w).long(), ((y0 + dy) % h).long()
+                keys.append(((image + level) << 32) | (y << 16) | x)
+    return keys
+
+
+def clip_alpha_work(call) -> tuple:
+    """(bytes, operations) one call of the peel's alpha test must move and
+    compute: per pixel of a slot with a tile id its tri read and its ok
+    byte written (5 B), per winner its material (4 B), per textured winner
+    its uv and derivatives (24 B); the bf16 alpha of each distinct texel
+    the textured winners' taps read and the material rows they name (a
+    diffuse ref, factor and cutoff: 12 B); per textured winner the LOD (14
+    operations), two levels' footprints (20) and bilinear lerps (18), the
+    blend (3), the factor and the compare (2)."""
+    import torch
+    from transmission_renderer_tpu_torch.render.shading import _mip_lod
+    from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, META_COLS
+
+    (scene, ch, ids, n_tiles, _), _ = call
+    live = (ids < n_tiles)[:, None, None]
+    m = scene.materials
+    mat = torch.clamp(ch["material"], min=0).long()
+    tid = m.tex_diffuse[mat]
+    winners = (ch["tri"] >= 0) & live
+    textured = winners & (tid >= 0)
+    mats = torch.unique(mat[winners])
+    mat, tid = mat[textured], tid[textured]
+    rows = scene.atlas_meta[(tid & IMAGE_MASK).long()][:, :META_COLS]
+    pick = [ch[n][textured] for n in ("uv_u", "uv_v", "duvdx_u", "duvdx_v", "duvdy_u",
+                                       "duvdy_v")]
+    lod = _mip_lod(torch.stack(pick[2:4], -1), torch.stack(pick[4:6], -1), rows[:, 2],
+                   rows[:, 3])
+    keys = tap_texel_keys(rows, tid, torch.stack(pick[:2], -1), lod)
+    texels = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
+    n = int(textured.sum())
+    px = int(live.sum()) * 8 * 128
+    nbytes = px * 5 + int(winners.sum()) * 4 + n * 24 + texels * 2 + mats.numel() * 12
+    return nbytes, n * 57
+
+
 def full_form_texels(pyramid, uv_x, uv_y, lod) -> int:
     """Distinct texels that kernel 4's full form reads for these pixels:
     the four texels of the clamp-to-edge bilinear footprint
@@ -771,6 +835,35 @@ def check_parity(handles, calls, max_err, tag: str) -> None:
                     f"{w.lights / max(w.valid, 1):.3f} lights per valid pixel, "
                     f"{w.uniform_warps} of {w.warps} warps holding a valid pixel share one "
                     f"cluster ({w.uniform_warps / max(w.warps, 1):.3f})")
+
+
+def check_clip_alpha(calls, max_err, tag: str) -> None:
+    """Replay each recorded call of the peel's alpha test
+    (render/frame.py::CLIP_ALPHA_KERNEL) through the kernel and the plain
+    version, each over a copy of one random ok state: equal bit for bit,
+    and the rows no slot names (the empty slots' pad row among them) as
+    they were; raise on a difference."""
+    import torch
+    from transmission_renderer_tpu_torch.render.frame import CLIP_ALPHA_KERNEL as h
+
+    require(len(calls) > 0, f"{tag}clip_alpha: the frame never called it")
+    gen = torch.Generator(device=calls[0][0][4].device).manual_seed(29)
+    for i, ((scene, ch, ids, n_tiles, ok_p), kw) in enumerate(calls):
+        base = torch.rand(ok_p.shape, generator=gen, device=ok_p.device) < 0.5
+        got = h.replay(((scene, ch, ids, n_tiles, base.clone()), kw), True)
+        ref = h.replay(((scene, ch, ids, n_tiles, base.clone()), kw), False)
+        named = torch.zeros(n_tiles + 1, dtype=torch.bool, device=ok_p.device)
+        named[ids.long()] = True
+        named[n_tiles] = False
+        live = ids < n_tiles
+        fail = (ch["tri"] >= 0) & ~got[ids.long()] & live[:, None, None]
+        bad, moved = int((got != ref).sum()), int((got[~named] != base[~named]).sum())
+        ok = bad == 0 and moved == 0
+        log(f"parity {tag}clip_alpha[{i}]: {int(live.sum())} slots of {n_tiles} tiles "
+            f"({int((~live).sum())} empty), {int(fail.sum())} winners fail, differing {bad}, "
+            f"rows no slot names changed {moved}, {'ok' if ok else 'FAIL'}")
+        require(ok, "clip_alpha: kernel disagrees with its plain version")
+    max_err["clip_alpha"] = 0.0
 
 
 def check_occlusion(calls, n_kinds: int, tag: str, tri_vertices, positions) -> list:
@@ -1022,10 +1115,11 @@ def make_params(cfg, rig, dev):
                              rig.sun_dir(), device=dev)
 
 
-def stress_phase(card: str, max_err: dict) -> dict:
+def stress_phase(card: str, max_err: dict) -> tuple:
     """Phase 9, the stress frame: kernel parity on every call of the
     frame, the launches, the clip diagnostics at both ends of the bench's
-    sweep, the golden, the timing. -> the frame's launch counts."""
+    sweep, the golden, the timing. -> (the frame's launch counts, the
+    kernels JSON row of the peel's alpha test)."""
     import torch
     from transmission_renderer_tpu_torch.config import RenderConfig
     from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
@@ -1059,14 +1153,17 @@ def stress_phase(card: str, max_err: dict) -> dict:
         return render_frame(scene, dl, p, lights, c, flags=flags, **kw)
 
     handles = port_handles()[:4]
+    clip = frame_mod.CLIP_ALPHA_KERNEL
     # (a) every kernel call of the frame through the kernel and its plain
-    # version: kernel 1 bit for bit on all ten, the peel bounds included
-    calls = capture(handles, frame)
+    # version: kernel 1 bit for bit on all ten, the peel bounds included;
+    # the peel's eight alpha tests bit for bit
+    calls = capture(handles + (clip,), frame)
     for i, (a, kw) in enumerate(calls["raster_gbuf"]):
         log(f"stress raster_gbuf[{i}]: pass_class {kw.get('pass_class')}, "
             f"max_depth {kw.get('max_depth_tiles') is not None}, "
             f"seeded {kw.get('init_depth_tiles') is not None}")
     check_parity(handles, calls, max_err, "stress ")
+    check_clip_alpha(calls[clip.name], max_err, "stress ")
 
     # (b) one frame with the counts reset: the reference's call sequence
     # (frame.py:1186-1197, 1417-1456): kernel 1 for the opaque raster, the
@@ -1074,10 +1171,11 @@ def stress_phase(card: str, max_err: dict) -> dict:
     # raster, the class-3 peel's first round and 3 re-races (the scene has
     # no class-3 triangle; the reference peels whenever alpha clip is on);
     # the diffuse tap once (the glass samples no texture), two shades, one
-    # refraction fetch
-    (img, diag), launches = count_launches(handles, frame, return_diagnostics=True)
+    # refraction fetch; one alpha test per round of each peel
+    (img, diag), launches = count_launches(handles + (clip,), frame, return_diagnostics=True)
     log(f"stress launches per frame: {launches}")
-    expect = {"raster_gbuf": 10, "tap_finish": 1, "shade": 2, "transmission_fetch": 1}
+    expect = {"raster_gbuf": 10, "tap_finish": 1, "shade": 2, "transmission_fetch": 1,
+              "clip_alpha": 2 * cfg.alpha_clip_rounds}
     require(launches == expect, f"stress launch counts {launches}, expected {expect}")
 
     # (c) the diagnostics at both ends of the bench's sweep, the unresolved
@@ -1127,9 +1225,17 @@ def stress_phase(card: str, max_err: dict) -> dict:
     golden = read_png(os.path.join(ROOT, "tests", "goldens", "stress_hd.png"))[..., :3] / 255.0
     cfg_conv = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
                             alpha_clip_rounds=8, clip_retile_cap_frac=1.0)
-    img_conv, d_conv = frame(params, cfg_conv, return_diagnostics=True)
+    clip.recorder = []
+    try:
+        img_conv, d_conv = frame(params, cfg_conv, return_diagnostics=True)
+        torch.cuda.synchronize()
+    finally:
+        conv_calls, clip.recorder = clip.recorder, None
     log(f"stress converged (alpha_clip_rounds 8, clip_retile_cap_frac 1.0): diagnostics "
         f"{diagnostics_dict(d_conv)}")
+    require(len(conv_calls) == 2 * cfg_conv.alpha_clip_rounds,
+            f"stress converged: {len(conv_calls)} alpha tests")
+    check_clip_alpha(conv_calls, max_err, "stress converged ")
     require(int(d_conv.clip_unresolved) == 0 and not d_conv.overflowed(),
             "stress: the converged peel left pixels unresolved or overflowed")
     rmse_conv = float(np.sqrt(np.mean((linear_to_srgb(img_conv.cpu().numpy()) - golden) ** 2)))
@@ -1163,7 +1269,22 @@ def stress_phase(card: str, max_err: dict) -> dict:
         f"{b_ms / k_ms:.4f} of the bound reached, {len(calls[h.name])} calls per frame; "
         f"covering pairs {[c[0] for c in per_call]}, pixels with a winner "
         f"{[c[1] for c in per_call]}")
-    return launches
+    # the peel's alpha test on the converged frame's calls: the
+    # benchmark's peel (8 rounds, full re-race caps)
+    k_ms, h_ms = kernel_ms(clip, conv_calls)
+    p_ms = plain_ms(clip, conv_calls)
+    works = [clip_alpha_work(c) for c in conv_calls]
+    b_ms, b_by = bound_of(works)
+    log(f"stress kernel clip_alpha on [{card}]: {k_ms:.4f} ms/frame on the device (host "
+        f"{h_ms:.3f}), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms by {b_by} "
+        f"({sum(w[0] for w in works)} bytes, {sum(w[1] for w in works)} operations), "
+        f"{b_ms / k_ms:.4f} of the bound reached, {len(conv_calls)} calls per converged "
+        f"frame; bytes per call {[w[0] for w in works]}")
+    row = {"name": clip.name, "route": "cuda", "source": clip.source,
+           "replaces": clip.replaces, "launches": len(conv_calls), "max_abs_err": None,
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, "frame": "stress_conv", "sharded": None}
+    return launches, row
 
 
 # FrameDiagnostics of the reference's 1080p stress frame on its
@@ -1192,8 +1313,6 @@ def alpha_taps(call) -> tuple:
     segment's current best and are tested."""
     import torch
     from transmission_renderer_tpu_torch.ops import raster_vis
-    from transmission_renderer_tpu_torch.ops.texture import _level_meta_from_rows, _tap_footprint
-    from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, LAYER_SHIFT, WRAP_REPEAT
 
     args, kw = call
     alpha = kw["alpha"]
@@ -1217,17 +1336,7 @@ def alpha_taps(call) -> tuple:
         mids.append(mid)
         at = (alpha.tri_clip[tri] != 0) & (tid >= 0)
         textured += int(at.sum())
-        rows, uv, lod, tid = rows[at], uv[at], lod[at], tid[at]
-        l0 = torch.floor(torch.clamp(lod, min=0.0)).to(torch.int32)
-        image = ((tid & IMAGE_MASK).long() * 32 + (tid >> LAYER_SHIFT).long()) * 16
-        for lvl in (l0, l0 + 1):
-            off, w, h = _level_meta_from_rows(rows, lvl)
-            _, _, _, x0, y0 = _tap_footprint(off, w, h, uv, WRAP_REPEAT)
-            level = torch.minimum(torch.clamp(lvl, min=0), rows[:, 0] - 1).long()
-            for dy in (0, 1):
-                for dx in (0, 1):
-                    x, y = ((x0 + dx) % w).long(), ((y0 + dy) % h).long()
-                    keys.append(((image + level) << 32) | (y << 16) | x)
+        keys += tap_texel_keys(rows[at], tid[at], uv[at], lod[at])
     texels = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
     n_tri = int(torch.unique(torch.cat(tris)).numel()) if tris else 0
     n_mat = int(torch.unique(torch.cat(mids)).numel()) if mids else 0
@@ -2312,7 +2421,8 @@ def sharded_frames_on_rank(mesh, out_dir: str):
     version), at a halo of the band height, and timed; with 2 bands (c)
     the stress frame, on the G-buffer branch and on the visibility branch
     (the last band's kernel-6 calls, padded rows included, against their
-    plain version), and (d) the ray-traced flagship, kernel 5's band
+    plain version; the peel's alpha tests on the band's local tile ids,
+    check_clip_alpha), and (d) the ray-traced flagship, kernel 5's band
     calls against the plain walk on every band. -> rank 0's frames,
     diagnostics, launches and times; the other ranks write their parity
     errors to out_dir/rank<r>.json and return None."""
@@ -2321,6 +2431,7 @@ def sharded_frames_on_rank(mesh, out_dir: str):
     from transmission_renderer_tpu_torch.ops import bvh_packet, raster_vis
     from transmission_renderer_tpu_torch.ops.cull import transform_vertices
     from transmission_renderer_tpu_torch.parallel import render_frame_sharded
+    from transmission_renderer_tpu_torch.render import frame as frame_mod
 
     n, r, dev = mesh.size, mesh.rank, mesh.device
     tag = f"sharded n={n} rank {r} "
@@ -2348,9 +2459,17 @@ def sharded_frames_on_rank(mesh, out_dir: str):
     if n == 2:
         s_scene, s_dl, s_flags = build_stress_scene().finish_bundle(device=dev)
         s_params = make_params(cfgs["stress"], bench_rig(0), dev)
-        ldr, diag = frame(cfgs["stress"], s_scene, s_dl, s_flags, s_params,
-                          return_diagnostics=True)
+        clip = frame_mod.CLIP_ALPHA_KERNEL
+        clip.recorder = []
+        try:
+            ldr, diag = frame(cfgs["stress"], s_scene, s_dl, s_flags, s_params,
+                              return_diagnostics=True)
+            torch.cuda.synchronize()
+        finally:
+            clip_calls, clip.recorder = clip.recorder, None
         out["stress"], out["stress_diag"] = ldr.cpu().numpy(), diagnostics_dict(diag)
+        # the peel's alpha test on the band's local tile ids
+        check_clip_alpha(clip_calls, max_err, tag)
         v_params = make_params(cfgs["stress_vis"], bench_rig(0), dev)
         (ldr, diag), out["vis_launches"] = count_launches(handles, lambda: frame(
             cfgs["stress_vis"], s_scene, s_dl, s_flags, v_params, return_diagnostics=True))
@@ -3254,7 +3373,7 @@ def main() -> int:
     check_parity((raster_gbuf.KERNEL,), big_calls, max_err, "vis materialised bins ")
 
     # ---- 9. the stress frame ----------------------------------------------------
-    stress_rows = stress_phase(card, max_err)
+    stress_rows, clip_row = stress_phase(card, max_err)
 
     # ---- 10. the bench's other scenes --------------------------------------------
     bench_launches, bench_kernels = bench_scenes_phase(card, max_err)
@@ -3286,6 +3405,7 @@ def main() -> int:
         "bvh": bvh})
     for row in kernel_rows:  # the one-rank sharded flagship's calls
         row["sharded"] = sharded[row["name"]]
+    kernel_rows.append(clip_row)  # the flagship runs no peel
 
     # ---- 16. pair-stream compaction; the frontier traversal beside kernel 5 ------
     compaction_phase(card, {"scene": scene, "dl": dl, "flags": flags, "params": params,

@@ -13,7 +13,11 @@ bit for bit against its plain version (its trilinear tap is
 atlas_tap.cuh's, shared with kernel 6's alpha form); kernel 6's alpha
 form and its checked form on the stress scene's visibility-buffer frame
 at 256x144 (bit for bit, the checked frame silent and equal, injected
-out-of-range indices reported through the error word); pair-stream
+out-of-range indices reported through the error word); the clip peel's
+alpha test (csrc/clip_alpha.cu) on the stress scene's kernel-branch
+frame at 256x144, dense and sparse first rounds (every call bit for bit,
+the rows no slot names left alone, one launch per clip_alpha_test span);
+pair-stream
 compaction of the 1080p flagship's binning call (the valid prefix, the
 overflow).
 Marked ``cuda``: on a host without a CUDA device they skip (the check
@@ -1127,6 +1131,92 @@ def test_vis_clip_checked_form(clip_captured):
         got = raster_vis.KERNEL.replay(calls[0], True)
     assert found == []
     _vis_compare(got, raster_vis.KERNEL.replay(calls[0], False), min_covered=100)
+
+
+# ---------------------------------------------------------------------------
+# the clip peel's alpha test (csrc/clip_alpha.cu): the stress scene's
+# kernel-branch frame
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["dense", "sparse"])
+def peel_captured(request):
+    """The stress scene's kernel-branch frame at 256x144 on the card (two
+    alpha-clip peels of the default 4 rounds; "sparse": the 1-tile floor
+    sends each peel's first round down its sparse worklist), the peel's
+    alpha-test calls recorded -> (config, calls, launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import (
+        CLIP_ALPHA_KERNEL,
+        make_frame_params,
+        render_frame,
+    )
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    dev = torch.device("cuda")
+    scene, dl, flags = build_stress_scene(grid=3).finish_bundle(device=dev)
+    floor = {"dense": 256, "sparse": 1}[request.param]
+    cfg = RenderConfig(width=256, height=144, use_pallas_raster=True,
+                       sparse_raster_tile_floor=floor)
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 3.0, 2.5], np.float32)
+    rig.camera.pitch = -0.5
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device=dev)
+    lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device=dev)
+    h = CLIP_ALPHA_KERNEL
+    h.recorder, h.launches = [], 0
+    img = render_frame(scene, dl, params, lights, cfg, flags=flags)
+    torch.cuda.synchronize()
+    calls, launches, h.recorder = h.recorder, h.launches, None
+    assert bool(torch.isfinite(img).all())
+    return cfg, calls, launches, (scene, dl, flags, params, lights)
+
+
+def test_clip_alpha_matches_plain(peel_captured):
+    """Each of the frame's alpha tests (2 peels x alpha_clip_rounds calls)
+    through the kernel and the plain version over the same random ok
+    state: bit-equal everywhere, and the rows no slot names (the empty
+    slots' pad row among them) keep what they held."""
+    from transmission_renderer_tpu_torch.render.frame import CLIP_ALPHA_KERNEL
+
+    cfg, calls, launches, _ = peel_captured
+    assert launches == len(calls) == 2 * cfg.alpha_clip_rounds
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    empty = failing = 0
+    for (scene, ch, ids, n_tiles, ok_p), kw in calls:
+        base = torch.rand(ok_p.shape, generator=gen, device="cuda") < 0.5
+        got = CLIP_ALPHA_KERNEL.replay(((scene, ch, ids, n_tiles, base.clone()), kw), True)
+        ref = CLIP_ALPHA_KERNEL.replay(((scene, ch, ids, n_tiles, base.clone()), kw), False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+        named = torch.zeros(n_tiles + 1, dtype=torch.bool, device="cuda")
+        named[ids.long()] = True
+        named[n_tiles] = False
+        assert torch.equal(got[~named], base[~named])
+        empty += int((ids >= n_tiles).sum())
+        live = named[ids.long()]
+        failing += int(((ch["tri"] >= 0) & ~got[ids.long()] & live[:, None, None]).sum())
+    assert empty > 0 and failing > 0
+
+
+def test_clip_alpha_test_spans_count_one_launch(peel_captured):
+    """In counting mode each clip_alpha_test span holds the kernel's one
+    launch and at most 10 aten ops."""
+    from transmission_renderer_tpu_torch.render.frame import render_frame
+    from transmission_renderer_tpu_torch.utils.profiling import FrameTracer, tracing
+
+    cfg, calls, _, (scene, dl, flags, params, lights) = peel_captured
+    with tracing(FrameTracer("cuda", counting=True)) as tracer:
+        render_frame(scene, dl, params, lights, cfg, flags=flags)
+        torch.cuda.synchronize()
+    spans = [s for s in tracer.read() if s.name == "clip_alpha_test"]
+    assert len(spans) == len(calls)
+    for s in spans:
+        assert s.counters["launches"] == 1 and s.kernels == {"clip_alpha": 1}
+        assert s.counters["ops"] <= 10
 
 
 # ---------------------------------------------------------------------------

@@ -177,6 +177,45 @@ def test_clip_alpha_test_matches_reference(scenes, pair):
     assert (~got & winners).any() and (got & winners).any()
 
 
+@pytest.mark.parametrize("form", ["grid", "band"])
+def test_clip_alpha_plain_scatters_by_slot_ids(scenes, pair, form):
+    """The peel's alpha test in its plain form (render/frame.py::
+    CLIP_ALPHA_KERNEL, the kernel's counterpart on the CPU) on the
+    channels of the port's first class-2 race: each slot's
+    _clip_alpha_ok_tiles lands at the slot's tile id, and an empty slot
+    (id n_tiles) writes nothing, so every other row, the pad row included,
+    keeps what it held. "grid": ids spread over a grid wider than the
+    worklist; "band": a band's local ids, the worklist as long as the
+    band, so the empty slots leave some of its tiles out."""
+    from transmission_renderer_tpu_torch.render.frame import (
+        CLIP_ALPHA_KERNEL,
+        _clip_alpha_ok_tiles,
+        _clip_alpha_test,
+    )
+
+    _, (pscene, _, _) = scenes
+    call = next(c for c in pair[4] if c[1].get("pass_class") == 2)
+    ch = raster_gbuf.KERNEL.replay(call, False)
+    k = ch["tri"].shape[0]
+    gen = torch.Generator().manual_seed(17)
+    n_tiles = 2 * k + 1 if form == "grid" else k
+    ids = torch.randperm(n_tiles, generator=gen)[:k].to(torch.int32)
+    ids[::3] = n_tiles  # empty slots, the first among them
+    base = torch.rand((n_tiles + 1, 8, 128), generator=gen) < 0.5
+    want = base.clone()
+    tested = _clip_alpha_ok_tiles(pscene, ch)
+    for slot, tile in enumerate(ids.tolist()):
+        if tile < n_tiles:
+            want[tile] = tested[slot]
+    before = CLIP_ALPHA_KERNEL.launches
+    got = _clip_alpha_test(pscene, ch, ids, n_tiles, base.clone())
+    assert torch.equal(got, want)
+    assert torch.equal(got[n_tiles], base[n_tiles])
+    assert CLIP_ALPHA_KERNEL.launches == before  # the plain form launches nothing
+    winners = ch["tri"] >= 0
+    assert bool((~tested & winners).any()) and bool((tested & winners).any())
+
+
 def test_stress_builder_matches_reference(scenes):
     """build_stress_scene freezes the reference's arrays bit for bit (the
     atlas as bf16 bit patterns), with the same flags, and the same atlas

@@ -1,9 +1,11 @@
 // The atlas tap's device code, shared by kernel 2 (tap_finish.cu, the
 // material taps), kernel 6's alpha form (raster_vis.cu, the in-raster
-// alpha test) and the closest-hit walk (bvh_closest.cu, the caster's
-// alpha test): one mip level's bilinear footprint in the bf16 quad-block
-// atlas (scene/textures.py) and its lerp, and the two-level trilinear tap
-// built from them.
+// alpha test), the peel's alpha test (clip_alpha.cu) and the closest-hit
+// walk (bvh_closest.cu, the caster's alpha test): one mip level's bilinear
+// footprint in the bf16 quad-block atlas (scene/textures.py) and its lerp,
+// the two-level trilinear tap built from them, and the diffuse alpha test
+// (diffuse_alpha_test) that kernel 6's alpha form and the peel's test
+// share.
 //
 // The arithmetic is ops/texture.py's (_level_meta_from_rows,
 // _wrap_bilinear_coords, _tap_footprint, _flat_row_index, _lerp4), term for
@@ -16,6 +18,8 @@ namespace trt {
 
 constexpr int META_LAYERS_COL = 17;  // meta column of an image's layer count
 constexpr int WRAP_REPEAT = 0;
+constexpr int LAYER_SHIFT = 16;  // a packed texture ref: image | layer << LAYER_SHIFT
+constexpr int IMAGE_MASK = (1 << LAYER_SHIFT) - 1;
 
 __device__ __forceinline__ float bf16_to_f32(uint16_t bits) {
     return __uint_as_float(((uint32_t)bits) << 16);
@@ -111,6 +115,73 @@ __device__ __forceinline__ float trilinear_lerp(const uint16_t* q, const Triline
 __device__ __forceinline__ int layer_class(const int* row, int class_mask) {
     const int lp = row[META_LAYERS_COL];
     return (lp >= 1 && lp <= 31 && ((class_mask >> (lp - 1)) & 1)) ? lp : __ffs(class_mask);
+}
+
+// torch.maximum: NaN if either is NaN
+__device__ __forceinline__ float nan_max(float a, float b) {
+    return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+// What the diffuse alpha test reads: per material its diffuse texture,
+// alpha factor and cutoff, and the atlas.
+struct AlphaMaterials {
+    const int* tex_diffuse;     // [M] packed refs, -1: none
+    const float* alpha_factor;  // diffuse_factor.a of material m at [m * factor_stride]
+    const float* cutoff;        // [M] alpha_clipping_cutoff
+    const uint16_t* quads;      // [R, row_elems] bf16 atlas
+    const int* meta;            // [images, meta_stride]
+    int factor_stride, n_images, meta_stride, row_elems, class_mask, l_max;
+    long long n_texels;  // elements of the atlas
+};
+
+// What diffuse_alpha_test finds; the checked form's two faults read
+// nothing past their bound.
+enum AlphaResult : int { ALPHA_KILL = 0, ALPHA_KEEP = 1, ALPHA_BAD_IMAGE = 2, ALPHA_BAD_TEXEL = 3 };
+
+// The alpha-clip test of material `mid` at one fragment (the fragment
+// kill of the reference's depth_pre_pass_alpha_clip): the diffuse alpha,
+// tapped trilinearly with REPEAT wrap at the implicit LOD of the uv's
+// screen derivatives (render/shading.py::_mip_lod), times the material's
+// factor (the factor alone without a texture), against its cutoff.
+// uv_of(uv, dx, dy) fills the fragment's uv and its x and y derivatives;
+// it is called only for a textured material. The layer rule is
+// ops/texture.py::select_layer's: a layer past the atlas's largest class
+// reads layer 0, and a layer the image lacks reads 0. CHECKED tests the
+// image and the tap's texels against their bounds first.
+template <bool CHECKED, class UvOf>
+__device__ __forceinline__ int diffuse_alpha_test(const AlphaMaterials& a, int mid, UvOf uv_of) {
+    const int tid = a.tex_diffuse[mid];
+    float tap = 1.0f;
+    if (tid >= 0) {
+        const int img = tid & IMAGE_MASK;
+        if (CHECKED && img >= a.n_images) return ALPHA_BAD_IMAGE;
+        const int* row = a.meta + (size_t)img * a.meta_stride;
+        float uv[2], dx[2], dy[2];
+        uv_of(uv, dx, dy);
+        const float tw = (float)row[2], th = (float)row[3];
+        const float fx0 = dx[0] * tw, fx1 = dx[1] * th;
+        const float fy0 = dy[0] * tw, fy1 = dy[1] * th;
+        float rho = nan_max(fx0 * fx0 + fx1 * fx1, fy0 * fy0 + fy1 * fy1);
+        rho = rho < 1e-12f ? 1e-12f : rho;  // torch.clamp: NaN stays NaN
+        const float lod = 0.5f * log2f(rho);
+        const int lc = layer_class(row, a.class_mask);
+        int layer = tid >> LAYER_SHIFT;
+        layer = layer < a.l_max ? layer : 0;  // a layer past the bundle reads layer 0
+        if (layer < lc) {
+            const Trilinear tr = trilinear_footprint(row, lod, uv[0], uv[1], WRAP_REPEAT,
+                                                     a.row_elems, lc);
+            const long long block = 16LL * lc;  // a 2x2 block of 4 * lc channels
+            if (CHECKED && ((long long)tr.f0.base + block > a.n_texels ||
+                            (long long)tr.f1.base + block > a.n_texels)) {
+                return ALPHA_BAD_TEXEL;
+            }
+            tap = trilinear_lerp(a.quads, tr, 4 * lc, 4 * layer + 3);
+        } else {
+            tap = 0.0f;  // a layer the image lacks reads 0
+        }
+    }
+    return a.alpha_factor[(size_t)mid * a.factor_stride] * tap >= a.cutoff[mid] ? ALPHA_KEEP
+                                                                               : ALPHA_KILL;
 }
 
 }  // namespace trt

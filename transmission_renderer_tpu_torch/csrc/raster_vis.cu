@@ -92,8 +92,6 @@ constexpr int RESOLVE_THREADS = 256;
 constexpr int CLASS_SHIFT = 22;
 constexpr int CLASS_MASK = (1 << CLASS_SHIFT) - 1;
 constexpr unsigned int NO_ID = 0xFFFFFFFFu;
-constexpr int LAYER_SHIFT = 16;
-constexpr int IMAGE_MASK = (1 << LAYER_SHIFT) - 1;
 
 // Bits of the checked form's error word (ops/raster_vis.py::CHECK_SITES).
 enum : int {
@@ -108,16 +106,11 @@ enum : int {
 
 // What the alpha form reads (ops/raster_vis.py::VisAlpha).
 struct VisAlpha {
-    const int* tri_clip;        // [T] 1: the triangle is in a clip bucket
-    const int* tri_material;    // [T]
-    const float* tri_uv;        // [T, 6] the three vertex uvs
-    const int* tex_diffuse;     // [M] packed refs, -1: none
-    const float* alpha_factor;  // [M] diffuse_factor.a
-    const float* cutoff;        // [M] alpha_clipping_cutoff
-    const uint16_t* quads;      // [R, row_elems] bf16 atlas
-    const int* meta;            // [images, meta_stride]
-    int n_tris, n_mat, n_images, meta_stride, row_elems, class_mask, l_max;
-    long long n_texels;  // elements of the atlas
+    const int* tri_clip;      // [T] 1: the triangle is in a clip bucket
+    const int* tri_material;  // [T]
+    const float* tri_uv;      // [T, 6] the three vertex uvs
+    int n_tris, n_mat;
+    trt::AlphaMaterials mat;  // the materials' diffuse alpha and the atlas
 };
 
 // The checked form's bounds: rows of the run records, of the big list and
@@ -135,11 +128,6 @@ __device__ __forceinline__ bool covered(float e, float a, float b) {
 
 __device__ __forceinline__ float edge(float a, float b, float c, float nx, float ny) {
     return __fmaf_rn(a, nx, b * ny) + c;
-}
-
-// torch.maximum: NaN if either is NaN
-__device__ __forceinline__ float nan_max(float a, float b) {
-    return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
 // NDC centre of pixel `lane` of a tile, in the reference's order
@@ -207,9 +195,10 @@ __device__ __forceinline__ void stage_chunk(float4 (*buf)[REC_F4], const float* 
 
 // The alpha test of triangle `id` at the pixel of edge functions e0..e2
 // (render/frame.py::_make_alpha_fn; ops/raster_vis.py::alpha_keep, term
-// for term): the perspective-correct uv and its analytic derivatives, the
-// implicit LOD (render/shading.py::_mip_lod), the trilinear tap of the
-// diffuse alpha, and alpha >= cutoff. True: the fragment stays.
+// for term): the perspective-correct uv and its analytic derivatives, then
+// atlas_tap.cuh's diffuse_alpha_test (the implicit LOD of
+// render/shading.py::_mip_lod, the trilinear tap of the diffuse alpha,
+// alpha >= cutoff), the peel's test too. True: the fragment stays.
 template <bool CHECKED>
 __device__ __forceinline__ bool alpha_keep(const VisAlpha& a, int id, float e0, float e1,
                                            float e2, float a0, float b0, float a1, float b1,
@@ -225,15 +214,8 @@ __device__ __forceinline__ bool alpha_keep(const VisAlpha& a, int id, float e0, 
         flag(err, ERR_MATERIAL);
         return true;
     }
-    const int tid = a.tex_diffuse[mid];
-    float tap = 1.0f;
-    if (tid >= 0) {
-        const int img = tid & IMAGE_MASK;
-        if (CHECKED && img >= a.n_images) {
-            flag(err, ERR_IMAGE);
-            return true;
-        }
-        const int* row = a.meta + (size_t)img * a.meta_stride;
+    const int got = trt::diffuse_alpha_test<CHECKED>(a.mat, mid, [&](float* uv, float* dx,
+                                                                     float* dy) {
         const float* t = a.tri_uv + (size_t)id * 6;
         const float d_sum = (e0 + e1) + e2;
         const float inv_d = 1.0f / d_sum;
@@ -241,7 +223,6 @@ __device__ __forceinline__ bool alpha_keep(const VisAlpha& a, int id, float e0, 
         const float b_sum = (b0 + b1) + b2;
         const float inv_d2x = (inv_d * inv_d) * ndc_sx;
         const float inv_d2y = (inv_d * inv_d) * ndc_sy;
-        float uv[2], dx[2], dy[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
             const float u0 = t[c], u1 = t[2 + c], u2 = t[4 + c];
@@ -252,30 +233,16 @@ __device__ __forceinline__ bool alpha_keep(const VisAlpha& a, int id, float e0, 
             dx[c] = (na * d_sum - n * a_sum) * inv_d2x;
             dy[c] = (nb * d_sum - n * b_sum) * inv_d2y;
         }
-        const float tw = (float)row[2], th = (float)row[3];
-        const float fx0 = dx[0] * tw, fx1 = dx[1] * th;
-        const float fy0 = dy[0] * tw, fy1 = dy[1] * th;
-        float rho = nan_max(fx0 * fx0 + fx1 * fx1, fy0 * fy0 + fy1 * fy1);
-        rho = rho < 1e-12f ? 1e-12f : rho;  // torch.clamp: NaN stays NaN
-        const float lod = 0.5f * log2f(rho);
-        const int lc = trt::layer_class(row, a.class_mask);
-        int layer = tid >> LAYER_SHIFT;
-        layer = layer < a.l_max ? layer : 0;  // a layer past the bundle reads layer 0
-        if (layer < lc) {
-            const trt::Trilinear tr = trt::trilinear_footprint(row, lod, uv[0], uv[1],
-                                                               trt::WRAP_REPEAT, a.row_elems, lc);
-            const long long block = 16LL * lc;  // a 2x2 block of 4 * lc channels
-            if (CHECKED && ((long long)tr.f0.base + block > a.n_texels ||
-                            (long long)tr.f1.base + block > a.n_texels)) {
-                flag(err, ERR_TEXEL);
-                return true;
-            }
-            tap = trt::trilinear_lerp(a.quads, tr, 4 * lc, 4 * layer + 3);
-        } else {
-            tap = 0.0f;  // a layer the image lacks reads 0
-        }
+    });
+    if (CHECKED && got == trt::ALPHA_BAD_IMAGE) {
+        flag(err, ERR_IMAGE);
+        return true;
     }
-    return a.alpha_factor[mid] * tap >= a.cutoff[mid];
+    if (CHECKED && got == trt::ALPHA_BAD_TEXEL) {
+        flag(err, ERR_TEXEL);
+        return true;
+    }
+    return got == trt::ALPHA_KEEP;
 }
 
 template <bool XLA_ORDER, bool ALPHA, bool CHECKED>
@@ -542,19 +509,21 @@ TRT_EXPORT int trt_raster_vis(const float* recs, const float* big, const float* 
         a.alpha.tri_clip = static_cast<const int*>(alpha_ptrs[0]);
         a.alpha.tri_material = static_cast<const int*>(alpha_ptrs[1]);
         a.alpha.tri_uv = static_cast<const float*>(alpha_ptrs[2]);
-        a.alpha.tex_diffuse = static_cast<const int*>(alpha_ptrs[3]);
-        a.alpha.alpha_factor = static_cast<const float*>(alpha_ptrs[4]);
-        a.alpha.cutoff = static_cast<const float*>(alpha_ptrs[5]);
-        a.alpha.quads = static_cast<const uint16_t*>(alpha_ptrs[6]);
-        a.alpha.meta = static_cast<const int*>(alpha_ptrs[7]);
         a.alpha.n_tris = alpha_dims[0];
         a.alpha.n_mat = alpha_dims[1];
-        a.alpha.n_images = alpha_dims[2];
-        a.alpha.meta_stride = alpha_dims[3];
-        a.alpha.row_elems = alpha_dims[4];
-        a.alpha.class_mask = alpha_dims[5];
-        a.alpha.l_max = alpha_dims[6];
-        a.alpha.n_texels = ((long long)alpha_dims[7] << 31) | (long long)alpha_dims[8];
+        trt::AlphaMaterials& m = a.alpha.mat;
+        m.tex_diffuse = static_cast<const int*>(alpha_ptrs[3]);
+        m.alpha_factor = static_cast<const float*>(alpha_ptrs[4]);
+        m.cutoff = static_cast<const float*>(alpha_ptrs[5]);
+        m.quads = static_cast<const uint16_t*>(alpha_ptrs[6]);
+        m.meta = static_cast<const int*>(alpha_ptrs[7]);
+        m.factor_stride = 1;
+        m.n_images = alpha_dims[2];
+        m.meta_stride = alpha_dims[3];
+        m.row_elems = alpha_dims[4];
+        m.class_mask = alpha_dims[5];
+        m.l_max = alpha_dims[6];
+        m.n_texels = ((long long)alpha_dims[7] << 31) | (long long)alpha_dims[8];
     }
     if (err) a.bd = Bounds{bounds[0], bounds[1], bounds[2], bounds[3]};
     if (k_tiles > 0) {

@@ -15,7 +15,9 @@ reference:
 - the G-buffer kernel branch (the flagship on the card; frame.py:1073-1158):
   class-split binning (four draw classes with alpha clip), the G-buffer
   raster (kernel 1, partial last tiles at any width), each alpha-clip
-  class depth-peeled after its pass (frame.py:1151-1158, 1439-1456), the
+  class depth-peeled after its pass (frame.py:1151-1158, 1439-1456; each
+  round's alpha test one launch of csrc/clip_alpha.cu, CLIP_ALPHA_KERNEL,
+  whose plain version is _clip_alpha_ok_tiles scattered by tile id), the
   dense or block-sparse opaque shade (frame.py:1278-1322), and the fused
   sparse transmission path (frame.py:1374-1416, 1486-1528) or, with alpha
   clip, half-res refraction, no tile cap or a width that is not a
@@ -56,6 +58,7 @@ never takes a silent detour.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import warnings
 from typing import NamedTuple
@@ -63,6 +66,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from transmission_renderer_tpu_torch import kernels
 from transmission_renderer_tpu_torch.config import (
     BUCKET_ALPHA_CLIP,
     BUCKET_OPAQUE,
@@ -103,6 +107,7 @@ from transmission_renderer_tpu_torch.ops.raster_vis import (
 from transmission_renderer_tpu_torch.ops.texture import (
     WRAP_REPEAT,
     atlas_classes,
+    class_mask,
     sample_texture_rows,
 )
 from transmission_renderer_tpu_torch.pbr.clustering import (
@@ -579,6 +584,75 @@ def _clip_alpha_ok_tiles(scene: Scene, ch: dict) -> torch.Tensor:
         return (ch["tri"] < 0) | (alpha >= m.alpha_clipping_cutoff[mat])
 
 
+# the tiled channels the peel's alpha test reads, in the kernel's order
+CLIP_ALPHA_CHANNELS = ("tri", "material", "uv_u", "uv_v", "duvdx_u", "duvdx_v", "duvdy_u",
+                       "duvdy_v")
+
+
+def _clip_alpha_plain(scene: Scene, ch: dict, ids: torch.Tensor, n_tiles: int,
+                      ok_p: torch.Tensor) -> torch.Tensor:
+    """The peel's alpha test in plain PyTorch: _clip_alpha_ok_tiles of the
+    slots' channels written over ``ok_p`` ([n_tiles + 1, 8, 128]) at the
+    slots' tile ``ids``; the empty slots' row n_tiles keeps what it held,
+    as in the kernel. -> ok_p."""
+    pad = ok_p[n_tiles].clone()
+    ok_p[ids.long()] = _clip_alpha_ok_tiles(scene, ch)
+    ok_p[n_tiles] = pad
+    return ok_p
+
+
+def _clip_alpha_cuda(scene: Scene, ch: dict, ids: torch.Tensor, n_tiles: int,
+                     ok_p: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/clip_alpha.cu: the test of every winner of the slots
+    whose id is below n_tiles, written into ``ok_p`` at that id. -> ok_p."""
+    with pass_scope("clip_alpha_test"):
+        dev = ok_p.device
+        k = ids.shape[0]
+        chans = [ch[n].contiguous() for n in CLIP_ALPHA_CHANNELS]
+        for name, t in zip(CLIP_ALPHA_CHANNELS, chans):
+            kernels.check(t, name, torch.int32 if name in ("tri", "material") else torch.float32,
+                          (k, TILE_H, TILE_W), device=dev)
+        kernels.check(ids, "ids", torch.int32, (k,), device=dev)
+        kernels.check(ok_p, "ok", torch.bool, (n_tiles + 1, TILE_H, TILE_W), device=dev)
+        m = scene.materials
+        n_mat = m.tex_diffuse.shape[0]
+        kernels.check(m.tex_diffuse, "diffuse refs", torch.int32, (n_mat,), device=dev)
+        kernels.check(m.diffuse_factor, "diffuse factors", torch.float32, (n_mat, 4), device=dev)
+        kernels.check(m.alpha_clipping_cutoff, "alpha cutoffs", torch.float32, (n_mat,),
+                      device=dev)
+        kernels.check(scene.atlas_texels, "atlas texels", torch.bfloat16, device=dev)
+        kernels.check(scene.atlas_meta, "atlas meta", torch.int32, device=dev)
+        classes = atlas_classes(scene.atlas_meta)
+        p, i = kernels.VOIDP, kernels.INT
+        fn = kernels.entry("trt_clip_alpha", [
+            ctypes.POINTER(ctypes.c_void_p), p, i, i, p, p, i, p, p, i, p, i, i, i, i, p, p])
+        kernels.launch(
+            CLIP_ALPHA_KERNEL, fn, (ctypes.c_void_p * 8)(*(t.data_ptr() for t in chans)),
+            kernels.ptr(ids), k, n_tiles, kernels.ptr(m.tex_diffuse),
+            kernels.ptr(m.diffuse_factor), 4, kernels.ptr(m.alpha_clipping_cutoff),
+            kernels.ptr(scene.atlas_texels), scene.atlas_texels.shape[-1],
+            kernels.ptr(scene.atlas_meta), scene.atlas_meta.shape[0],
+            scene.atlas_meta.shape[1], class_mask(classes), max(classes), kernels.ptr(ok_p))
+    return ok_p
+
+
+CLIP_ALPHA_KERNEL = kernels.KernelHandle(
+    "clip_alpha", "transmission_renderer_tpu_torch/csrc/clip_alpha.cu",
+    "none: the peel's alpha test is XLA code, "
+    "transmission_renderer_tpu/render/frame.py:536 (_clip_alpha_ok_tiles)",
+    cuda=_clip_alpha_cuda, plain=_clip_alpha_plain,
+)
+
+
+def _clip_alpha_test(scene: Scene, ch: dict, ids: torch.Tensor, n_tiles: int,
+                     ok_p: torch.Tensor) -> torch.Tensor:
+    """The peel's alpha test of a worklist's winners (``ch``: tiled
+    channels [slots, 8, 128]; ``ids``: [slots] int32 tile ids, n_tiles for
+    an empty slot) into the peel's state ``ok_p`` [n_tiles + 1, 8, 128]:
+    the kernel for CUDA tensors, _clip_alpha_plain otherwise. -> ok_p."""
+    return CLIP_ALPHA_KERNEL(ok_p.is_cuda, scene, ch, ids, n_tiles, ok_p)
+
+
 def vis_alpha(scene: Scene, dl: DrawList, uvs: torch.Tensor) -> VisAlpha:
     """The visibility raster's alpha test inputs (the reference's
     _make_alpha_fn, frame.py:886-954) from the scene, the draw list and
@@ -697,20 +771,20 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     cap_c = 0 if band else _tile_cap(config.clip_tile_cap_frac, n_tiles,
                                      config.sparse_raster_tile_floor)
     clip_tiles = torch.zeros((), dtype=torch.int32, device=dev)
+    # whether each pixel's winner passes (row n_tiles takes no write)
+    ok_p = torch.ones((n_tiles + 1, TILE_H, TILE_W), dtype=torch.bool, device=dev)
     if cap_c:
         # sparse first round: only the tiles holding records of the class
         # (inactive tiles keep the cleared output, so base wins there)
         ch, clip_tiles, (ids0, _, sub0) = _rasterize_class_sparse(
             payload, bins.tile_start, big_count, pass_class, cap_c, init_tiles, w, h,
             pos_derivs=pos_derivs)
-        ok = torch.ones((n_tiles + 1, TILE_H, TILE_W), dtype=torch.bool, device=dev)
-        ok[ids0.long()] = _clip_alpha_ok_tiles(scene, sub0)
-        ok = ok[:n_tiles]
+        _clip_alpha_test(scene, sub0, ids0, n_tiles, ok_p)
     else:
         ch = rasterize_gbuffer_tiles(payload, all_ids, bins.tile_start, big_count, w, h,
                                      init_depth_tiles=init_tiles, pass_class=pass_class,
                                      pos_derivs=pos_derivs, n_tiles_global=n_tiles_global)
-        ok = _clip_alpha_ok_tiles(scene, ch)
+        _clip_alpha_test(scene, ch, local_ids, n_tiles, ok_p)
     # per-round re-race caps: a scalar fraction for every round, or a
     # tuple of shrinking ones (round r takes entry min(r - 1, last))
     fracs = config.clip_retile_cap_frac
@@ -722,7 +796,6 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     peel_pad_tile = torch.argmin(bins.tile_start[peel_base + 1]
                                  - bins.tile_start[peel_base]).to(torch.int32)
     state = {n: torch.cat([a, torch.zeros_like(a[:1])]) for n, a in ch.items()}
-    ok_p = torch.cat([ok, torch.ones_like(ok[:1])])
     round_demand, round_caps = [], []
     for rnd in range(1, max(config.alpha_clip_rounds, 1)):
         cap = caps[min(rnd - 1, len(caps) - 1)]
@@ -750,7 +823,7 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
             sub = {n: torch.where(failed_sel, new[n], prev[n]) for n in state}
             for n, a in state.items():
                 a[ids.long()] = sub[n]
-            ok_p[ids.long()] = _clip_alpha_ok_tiles(scene, sub)
+            _clip_alpha_test(scene, sub, ids, n_tiles, ok_p)
     ch = {n: a[:n_tiles] for n, a in state.items()}
     failed = (ch["tri"] >= 0) & ~ok_p[:n_tiles]
     unresolved = failed.to(torch.int32).sum()

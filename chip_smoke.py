@@ -34,7 +34,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    tile's run (what kernel 1's work list spreads over the card); per
    shade call the valid pixels, the lights per valid pixel and the share
    of the warps holding a valid pixel whose valid pixels share one
-   cluster (the warps a warp-shared light list would serve).
+   cluster (the warps a warp-shared light list would serve). Then the
+   pixel box (sliver_check): a sliver of the glass blob whose float32
+   edge functions read "inside" 3 px past its vertices' box at 1920x1080
+   draws no pixel through kernel 1 nor through kernel 6 (both orders),
+   and draws that pixel through kernel 1 with its box widened to the
+   screen, so the witness is live on the card.
 5. frame: one frame with the launch counts reset first; it must launch
    raster 2, tap 1, shade 2, fetch 1 times, give a finite image in
    [0, 1], report no capacity overflow, and match the stored golden
@@ -503,20 +508,21 @@ def kernel_work(name: str, call, data=None) -> tuple:
                                      kwargs.get("uv_channels", True)))
         seeds = 1 + (kwargs.get("max_depth_tiles") is not None)
         uv, pd = kwargs.get("uv_channels", True), kwargs.get("pos_derivs", True)
-        # 42 of a record's 64 floats are read; per pixel and record three
-        # edge functions and their coverage tests (15 operations), and
-        # where the record covers the pixel (data[0] such pairs) the w and
-        # z sums, a divide and 5 tests more (31 in all); per pixel with a
-        # winner (data[1]) its interpolation once: 11 operations of set-up
+        # 46 of a record's 64 floats are read (42 and the pixel box); per
+        # pixel and record three edge functions and their coverage tests
+        # (15 operations), and where the record covers the pixel (data[0]
+        # such pairs) the box's 4 tests, the w and z sums, a divide and 5
+        # tests more (35 in all); per pixel with a winner (data[1]) its
+        # interpolation once: 11 operations of set-up
         # (edge and coefficient sums, 1/D, the 2/(w D^2) scales), 6 per
         # interpolated value (pos, nrm, uv) and 18 more per derivative
         # pair (pos with pos_derivs, uv)
         covered, winners = data
-        nbytes = (runs + nbig) * 42 * 4 + tile_ids.numel() * 12 + px * 4 * (seeds + planes)
+        nbytes = (runs + nbig) * 46 * 4 + tile_ids.numel() * 12 + px * 4 * (seeds + planes)
         interp = 11 + 6 * (6 + 2 * uv) + 18 * (2 * uv + 3 * pd)
         # every tile tests its run and the big list
         pairs = (runs + tile_ids.numel() * nbig) * TILE_H * TILE_W
-        return nbytes, (pairs - covered) * 15 + covered * 31 + winners * interp
+        return nbytes, (pairs - covered) * 15 + covered * 35 + winners * interp
     if name == "tap_finish":
         quads, rows, uv, lod, _, classes = args
         m, lmax = uv.shape[0], max(classes)
@@ -549,13 +555,13 @@ def kernel_work(name: str, call, data=None) -> tuple:
         k, px = tile_ids.numel(), tile_ids.numel() * tile_w * tile_h
         runs, nbig = int(run_count.sum()), int(big_count[0])
         seeded = kwargs.get("init_depth_tiles") is not None
-        # each walked record (16 floats) read once, the tile list, the seed
+        # each walked record (20 floats) read once, the tile list, the seed
         # depth, and the four [K, th, tw] outputs; per pixel and record
         # (each tile's run and the big list) three edge functions and their
         # coverage tests (15 operations), and where the record covers the
-        # pixel (data[0] such pairs) the w and z sums, a divide and 5 tests
-        # more (31 in all); per pixel with a winner (data[1]) its resolve
-        # once: the edge functions, the w and z sums, the depth's divide,
+        # pixel (data[0] such pairs) the pixel box's 4 tests, the w and z
+        # sums, a divide and 5 tests more (35 in all); per pixel with a
+        # winner (data[1]) its resolve once: the edge functions, the w and z sums, the depth's divide,
         # the edge sum and the two barycentrics (28). The alpha form
         # (data[2], alpha_taps) adds per fragment it tests that is a
         # clip-bucket triangle's with a diffuse texture 154 operations (the
@@ -566,9 +572,9 @@ def kernel_work(name: str, call, data=None) -> tuple:
         # alpha of each once) and of the tested triangles' side-table rows
         # and materials
         covered, winners = data[:2]
-        nbytes = (runs + nbig) * 64 + k * 12 + 4 + px * 4 * (seeded + 4)
+        nbytes = (runs + nbig) * 80 + k * 12 + 4 + px * 4 * (seeded + 4)
         pairs = (runs + k * nbig) * tile_w * tile_h
-        ops = (pairs - covered) * 15 + covered * 31 + winners * 28
+        ops = (pairs - covered) * 15 + covered * 35 + winners * 28
         if len(data) > 2:
             tested, textured, tap_bytes = data[2]
             nbytes += tap_bytes
@@ -934,6 +940,69 @@ def row_major(call, shape: tuple, mode: str, n_kinds: int):
     lane[lane_px] = torch.arange(n, device=rays.device)
     rays_rm = rays.reshape(10, n_kinds, n)[:, :, lane].reshape(10, -1).contiguous()
     return ((tree, table, rays_rm, t_min), kw), lane
+
+
+# a sliver of the glass blob (the benchmark's dragon.orbit, seed 4004,
+# frame 32): clip-space vertices as the frame computes them; at 1920x1080
+# its float32 edge functions read "inside" at pixel (1160, 170), 3 px
+# right of its vertices' box, where float64 reads outside, and no pixel
+# centre lies inside it (the tests of the pixel box read it from here)
+SLIVER = [[0.9275342226028442, -3.1695566177368164, 0.009908081032335758, 4.605861186981201],
+          [0.9480902552604675, -3.1573805809020996, 0.009908118285238743, 4.604023456573486],
+          [0.9262080192565918, -3.165588140487671, 0.009908199310302734, 4.599979877471924]]
+SLIVER_PIXEL = (1160, 170)
+
+
+def sliver_check(dev) -> None:
+    """Kernels 1 and 6 on the card draw no pixel of SLIVER at 1920x1080;
+    kernel 1 with the record's box widened to the screen draws exactly
+    SLIVER_PIXEL (the edge functions alone cover it)."""
+    import torch
+
+    from transmission_renderer_tpu_torch.ops import raster, raster_gbuf, raster_vis
+
+    w, h = 1920, 1080
+    clip = torch.tensor(SLIVER, dtype=torch.float32, device=dev)
+    tris = torch.tensor([[0, 1, 2]], dtype=torch.int32, device=dev)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    setup = raster.setup_triangles(clip, tris, one, w, h, 128, 8)
+    x, y = SLIVER_PIXEL
+    tile = (y // 8) * (w // 128) + x // 128
+    ids = torch.tensor([tile], dtype=torch.int32, device=dev)
+    cls = torch.zeros(1, dtype=torch.int32, device=dev)
+    bins = raster.bin_triangles(setup, w // 128, -(-h // 8), 8, cls, 2,
+                                ((8, 4096), (128, 512), (2048, 64), (0, 16)))
+    zeros = torch.zeros(3, 3, device=dev)
+    rec = raster_gbuf.pack_gbuf_payload(setup, tris, cls, torch.ones(1, device=dev), zeros,
+                                        zeros, torch.zeros(3, 2, device=dev), cls)
+    drawn = {}
+    for tag, box in (("box", None), ("screen", [0.0, 0.0, w - 1.0, h - 1.0])):
+        r = rec.clone()
+        if box is not None:
+            r[:, raster_gbuf.BOX_F32 : raster_gbuf.BOX_F32 + 4] = torch.tensor(box, device=dev)
+        ch = raster_gbuf.rasterize_gbuffer_tiles(raster_gbuf.gather_gbuf_payload(r, bins), ids,
+                                                 bins.tile_start, 0, w, h, pass_class=0)
+        drawn[tag] = [(tile % (w // 128) * 128 + c, tile // (w // 128) * 8 + rr)
+                      for rr, c in torch.nonzero(ch["tri"][0] >= 0).tolist()]
+    mat = raster.bin_triangles_materialized(setup, w // 128, -(-h // 8), 8, 64, 16)
+    payload = raster_vis.gather_bin_payload(setup, mat)
+    tid = ids.long()
+    vis = {}
+    for xla in (True, False):
+        count = (mat.tile_tri_count[tid] if xla
+                 else mat.tile_start[tid + 1] - mat.tile_start[tid]).to(torch.int32)
+        tri = raster_vis.raster_vis(payload, ids, mat.tile_start[tid].contiguous(),
+                                    count.contiguous(), torch.zeros(1, dtype=torch.int32,
+                                                                    device=dev),
+                                    w, h, 128, 8, xla_order=xla)[0]
+        vis[xla] = int((tri >= 0).sum())
+    torch.cuda.synchronize()
+    log(f"sliver at {SLIVER_PIXEL}: kernel 1 draws {drawn['box']} (box from the set-up "
+        f"{setup.pixel_box[0].tolist()}), {drawn['screen']} with the box widened to the "
+        f"screen; kernel 6 draws {vis[True]} (XLA order), {vis[False]} (kernel-6 order)")
+    require(drawn["box"] == [] and vis == {True: 0, False: 0},
+            "the sliver drew a pixel past its box on the card")
+    require(drawn["screen"] == [SLIVER_PIXEL], "the sliver's witness pixel is not live")
 
 
 def capture(handles, frame) -> dict:
@@ -3109,6 +3178,7 @@ def main() -> int:
     calls = capture(handles, frame)
     max_err = {}
     check_parity(handles, calls, max_err, "")
+    sliver_check(dev)
 
     # ---- 5. one frame through the kernels ------------------------------------
     (img, hdr, diag), launches = count_launches(handles, frame, return_hdr=True,

@@ -19,7 +19,8 @@ frame at 256x144, dense and sparse first rounds (every call bit for bit,
 the rows no slot names left alone, one launch per clip_alpha_test span);
 pair-stream
 compaction of the 1080p flagship's binning call (the valid prefix, the
-overflow).
+overflow); the pixel box: a sliver of the glass blob drawn by neither
+raster past its box at 1920x1080.
 Marked ``cuda``: on a host without a CUDA device they skip (the check
 runs inside the fixture, never at import).
 
@@ -321,6 +322,18 @@ def _gbuf_scene(dev, seed=3, n_tris=700, w=256, h=64):
         setup, tris_t, mat, scale, torch.from_numpy(pos).to(dev),
         torch.from_numpy(nrm).to(dev), torch.from_numpy(uv).to(dev), cls)
     return raster_gbuf.gather_gbuf_payload(rec, bins), bins.tile_start
+
+
+def test_sliver_draws_no_pixel_on_the_card():
+    """Kernels 1 and 6 leave the glass blob's sliver (chip_smoke.SLIVER)
+    undrawn at 1920x1080, where its float32 edge functions read "inside"
+    past its pixel box; with the record's box widened to the screen,
+    kernel 1 draws the witness pixel (chip_smoke.py::sliver_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    import chip_smoke
+
+    chip_smoke.sliver_check(torch.device("cuda"))
 
 
 @pytest.mark.parametrize("case", ["long-runs", "seeded", "peel"])

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from pixel_box_defs import pixel_box
 
 from transmission_renderer_tpu.ops import raster as jraster
 from transmission_renderer_tpu.ops import raster_pallas_gbuf as jgbuf
@@ -92,7 +93,10 @@ def test_setup_triangles_exact(seed):
 
 @pytest.mark.parametrize("seed", [5, 9])
 def test_bin_triangles_exact(seed):
-    """tile_start, sorted ids and tier demands exactly equal."""
+    """tile_start, sorted ids and tier demands exactly equal; the records
+    and their gathered rows equal the reference's bit for bit but for
+    floats 44-47, the pixel box, which the reference's records lack (zero
+    padding there) and which equals a numpy computation of the box."""
     d = _inputs(seed)
     _, ref, ref_rec = _ref_pipeline(d)
     _, got, rec = _port_pipeline(d)
@@ -103,10 +107,21 @@ def test_bin_triangles_exact(seed):
     assert [int(x) for x in got.tier_demands] == [int(x) for x in ref.tier_demands]
     assert int(got.big_tri_count) == int(ref.big_tri_count)
     assert int(got.max_bin_count) == int(ref.max_bin_count)
-    np.testing.assert_array_equal(rec.numpy(), np.asarray(ref_rec))
+    b = raster_gbuf.BOX_F32
+    rest = np.r_[0:b, b + 4 : raster_gbuf.REC_F32]
+    box = pixel_box(d["clip"], d["tris"], W, H)
+    np.testing.assert_array_equal(rec.numpy()[:, rest], np.asarray(ref_rec)[:, rest])
+    np.testing.assert_array_equal(rec.numpy()[:, b : b + 4], box)
+    assert not np.asarray(ref_rec)[:, b : b + 4].any()
     ref_rows, _ = jgbuf.gather_gbuf_payload(ref_rec, ref)
     rows, _ = raster_gbuf.gather_gbuf_payload(rec, got)
-    np.testing.assert_array_equal(rows.numpy(), np.asarray(ref_rows))
+    rows, ref_rows = rows.numpy().reshape(-1, 64), np.asarray(ref_rows).reshape(-1, 64)
+    np.testing.assert_array_equal(rows[:, rest], ref_rows[:, rest])
+    # each row's box is its record's (sentinel and padding rows: zeros)
+    ids = got.sorted_tri_ids.numpy()
+    want = np.zeros((rows.shape[0], 4), np.float32)
+    want[: len(ids)] = np.where((ids >= 0)[:, None], box[np.maximum(ids, 0)], 0.0)
+    np.testing.assert_array_equal(rows[:, b : b + 4], want)
 
 
 def _compare_channels(got: dict, ref: dict):
@@ -381,7 +396,8 @@ def test_covered_pairs_counts_the_covering_records(case):
     """covered_pairs (the pairs kernel 1's bound charges the depth test
     for) equals a numpy float32 count: per listed tile, per record of its
     run in the pass's class, the pixels whose three edge functions pass
-    the top-left rule; a record covers few of a tile's pixels."""
+    the top-left rule, inside its pixel box; a record covers few of a
+    tile's pixels."""
     payload, ids, ts, kw = _segment_case(case)
     pc = kw.get("pass_class")
     got = raster_gbuf.covered_pairs(payload, ids, ts, W, H, pass_class=pc)
@@ -389,6 +405,7 @@ def test_covered_pairs_counts_the_covering_records(case):
     start, count = raster_gbuf._tile_runs(ts, ids, (ts.shape[0] - 1) // ((W // 128) * (H // 8)),
                                           pc)
     nx, ny = (a.numpy() for a in raster_gbuf._pixel_ndc(ids, W, H))
+    px, py = (a.numpy() for a in raster_gbuf._pixel_xy(ids, W))
 
     def covered(e, a, b):
         return (e > 0) | ((e == 0) & ((a > 0) | ((a == 0) & (b > 0))))
@@ -403,6 +420,8 @@ def test_covered_pairs_counts_the_covering_records(case):
             for j in range(3):
                 a, b, c = r[3 * j : 3 * j + 3]
                 cov &= covered(a * nx[k] + b * ny[k] + c, a, b)
+            x0, y0, x1, y1 = r[raster_gbuf.BOX_F32 : raster_gbuf.BOX_F32 + 4]
+            cov &= (px[k] >= x0) & (px[k] <= x1) & (py[k] >= y0) & (py[k] <= y1)
             want += int(cov.sum())
     assert got == want
     assert 0 < want < 0.5 * pairs
@@ -508,6 +527,7 @@ def test_covered_pairs_counts_the_big_list():
     without = raster_gbuf.covered_pairs(payload, ids, ts, W, H)
     big = payload[1].reshape(-1, raster_gbuf.REC_F32)[: int(nbig)].numpy()
     nx, ny = (a.numpy() for a in raster_gbuf._pixel_ndc(ids, W, H))
+    px, py = (a.numpy() for a in raster_gbuf._pixel_xy(ids, W))
 
     def covered(e, a, b):
         return (e > 0) | ((e == 0) & ((a > 0) | ((a == 0) & (b > 0))))
@@ -518,5 +538,7 @@ def test_covered_pairs_counts_the_big_list():
         for j in range(3):
             a, b, c = r[3 * j : 3 * j + 3]
             cov &= covered(a * nx + b * ny + c, a, b)
+        x0, y0, x1, y1 = r[raster_gbuf.BOX_F32 : raster_gbuf.BOX_F32 + 4]
+        cov &= (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
         want += int(cov.sum())
     assert with_big - without == want > 0

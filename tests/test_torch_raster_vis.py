@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from pixel_box_defs import pixel_box
 
 from transmission_renderer_tpu.ops import raster as jraster
 from transmission_renderer_tpu.ops import raster_pallas as jpallas
@@ -165,8 +166,12 @@ def test_kernel6_order_pass_class(pass_class):
     cls = np.random.default_rng(5).integers(0, 2, len(tris)).astype(np.int32)
     ref_pay = jpallas.gather_bin_payload(ref_setup, ref_bins, jnp.asarray(cls))
     pay = raster_vis.gather_bin_payload(setup, bins, _t(cls))
+    # the reference's 16 floats, then the pixel box, which it lacks
     ref_rec = np.asarray(ref_pay[0]).reshape(-1, 16)[: pay[0].shape[0]]
-    np.testing.assert_array_equal(pay[0].numpy(), ref_rec)
+    np.testing.assert_array_equal(pay[0][:, :16].numpy(), ref_rec)
+    box = np.concatenate([pixel_box(clip, tris, W, H), np.zeros((1, 4), np.float32)])
+    ids = np.where(bins.sorted_tri_ids.numpy() >= 0, bins.sorted_tri_ids.numpy(), len(tris))
+    np.testing.assert_array_equal(pay[0][:, 16:].numpy(), box[ids])
     ref = jpallas.rasterize_pallas(ref_setup, ref_bins, W, H, interpret=True,
                                    pass_class=pass_class, payload=ref_pay)
     got = raster_vis.rasterize_pallas(setup, bins, W, H, pass_class=pass_class, payload=pay)
@@ -382,7 +387,7 @@ def test_vis_covered_pairs_counts_the_covering_records():
     visibility-buffer frame of the dragon: per tile, per record of its
     list (the big list and its run), the pixels whose three edge
     functions, contracted as the kernel computes them, pass the top-left
-    rule."""
+    rule, inside the record's pixel box."""
     from transmission_renderer_tpu_torch.models.procedural import build_dragon_scene
     from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
     from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
@@ -417,6 +422,9 @@ def test_vis_covered_pairs_counts_the_covering_records():
             ny = ((np.float32(ty * th) + np.arange(th, dtype=np.float32)) + np.float32(0.5)) \
                 * np.float32(2.0 / h) - np.float32(1.0)
             nx, ny = np.broadcast_to(nx[None], (th, tw)), np.broadcast_to(ny[:, None], (th, tw))
+            px = np.broadcast_to(np.arange(tx * tw, tx * tw + tw, dtype=np.float32)[None], (th, tw))
+            py = np.broadcast_to(np.arange(ty * th, ty * th + th, dtype=np.float32)[:, None],
+                                 (th, tw))
             lst = np.concatenate([big[:nbig], recs[int(start[k]) : int(start[k] + count[k])]])
             for r in lst:
                 if int(r[15]) < 0:
@@ -428,6 +436,8 @@ def test_vis_covered_pairs_counts_the_covering_records():
                     e = (np.float64(a) * nx.astype(np.float64)
                          + (b * ny).astype(np.float64)).astype(np.float32) + c
                     cov &= (e > 0) | ((e == 0) & ((a > 0) | ((a == 0) & (b > 0))))
+                x0, y0, x1, y1 = r[raster_vis.BOX_F32 : raster_vis.BOX_F32 + 4]
+                cov &= (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
                 want += int(cov.sum())
         assert got == want
         assert 0 < want < 0.5 * pairs

@@ -42,6 +42,7 @@ import pytest
 import torch
 
 from golden_defs import CFG, CFG_HD, GOLDEN_DIR, _dragon, _lights, _rig
+from pixel_box_defs import pixel_box
 from transmission_renderer_tpu.config import (
     BUCKET_ALPHA_CLIP,
     BUCKET_OPAQUE,
@@ -188,9 +189,9 @@ def _units(name):
         scale = scene.inst_transform.scale[dl.tri_inst]
         g = jgbuffer.interpolate_gbuffer(vbuf, setup, dl.tri_vtx, dl.tri_material, scale,
                                          world, nrm, uvs, cfg.width, cfg.height)
-        return vbuf, setup, g, (world, nrm, uvs, scale)
+        return vbuf, setup, g, (world, nrm, uvs, scale), clip
 
-    vbuf, setup, g, attrs = raster(scene, dl, params)
+    vbuf, setup, g, attrs, clip = raster(scene, dl, params)
     coeffs, amin, amax = jframe._static_cluster_data(cfg)
     lp_h = jnp.concatenate([lights.position, jnp.ones_like(lights.position[:, :1])], -1)
     counts, indices = assign_lights_to_clusters(
@@ -222,7 +223,7 @@ def _units(name):
         mat_matrix=shading.build_material_matrix(pscene, pflags.tex_slots,
                                                  pflags.slot_bundles))
     return dict(scene=scene, flags=flags, vbuf=vbuf, setup=setup, g=g, attrs=attrs,
-                dl=dl, jctx=jctx, pscene=pscene, pctx=pctx)
+                clip=clip, dl=dl, jctx=jctx, pscene=pscene, pctx=pctx)
 
 
 def _t(a):
@@ -243,7 +244,9 @@ def _close(got, ref, atol, rtol, what):
 def test_interpolate_gbuffer_matches_reference(name):
     u = _units(name)
     world, nrm, uvs, scale = (_t(a) for a in u["attrs"])
-    psetup = TriangleSetup(*(_t(a) for a in u["setup"]))
+    # the reference's set-up has no pixel box: the port's is computed alike
+    box = pixel_box(np.asarray(u["clip"]), np.asarray(u["dl"].tri_vtx), CFG.width, CFG.height)
+    psetup = TriangleSetup(*(_t(a) for a in u["setup"]), torch.from_numpy(box))
     got = gbuffer.interpolate_gbuffer(bridge.vis_buffer(u["vbuf"], device="cpu"), psetup,
                                       _t(u["dl"].tri_vtx), _t(u["dl"].tri_material), scale,
                                       world, nrm, uvs, CFG.width, CFG.height)

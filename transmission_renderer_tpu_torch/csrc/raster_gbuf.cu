@@ -5,12 +5,18 @@
 // ::_kernel (pl.pallas_call at raster_pallas_gbuf.py:468). Per 8x128 tile
 // it walks one list of records (64 f32 each: [0:9] adjugate edge rows,
 // [9:12] clip z, [12:15] clip w, [15] tri id + class, [16:40] three
-// vertices of pos/nrm/uv, [40] material, [41] scale): the big list (the
+// vertices of pos/nrm/uv, [40] material, [41] scale, [44:48] the pixel
+// box: x0, y0, x1, y1, inclusive pixel indices): the big list (the
 // big_count records every tile walks, as the reference's big_body does
 // before the tile's run; none on class-split bins), then the tile's run of
-// class-split, depth-race-ordered records. It races reversed-Z GREATER
-// against the seeded depth (and below max_depth), and interpolates the
-// winner's attributes and their analytic screen-space derivatives.
+// class-split, depth-race-ordered records. A record covers a pixel where
+// its three edge functions pass the top-left rule and the pixel lies in
+// its box: a sliver's float32 edge functions can read "inside" at pixels
+// past its vertices' screen box, and no pixel centre outside the box
+// widened by one pixel lies inside the triangle. It races reversed-Z
+// GREATER against the seeded depth (and below max_depth), and
+// interpolates the winner's attributes and their analytic screen-space
+// derivatives.
 //
 // What bounds it: the pixel-record tests (three edge functions, the w and
 // z sums, a divide, 8 compares per pixel and record), and the run lengths
@@ -40,8 +46,9 @@
 //   frame's host time is its bottleneck). A block finds its item's tile
 //   by a binary search of that running count. The merge is a maximum, so
 //   the order of slots within a bucket does not change the result.
-// - The race reads 16 of a record's 64 floats (edge rows, z, w, id):
-//   chunks of 32 records are staged into shared memory with 16-byte
+// - The race reads 20 of a record's 64 floats (edge rows, z, w, id, and
+//   the box, one aligned float4 tested only where the edge functions
+//   cover): chunks of 32 records are staged into shared memory with 16-byte
 //   cp.async copies, double-buffered so the next chunk loads while this
 //   one is tested (the other resident blocks hide most of that latency
 //   too: one 64-record chunk per item measured 1.5% faster). Each thread
@@ -69,7 +76,8 @@ constexpr int TILE_H = 8;
 constexpr int TILE_W = 128;
 constexpr int TILE_PX = TILE_H * TILE_W;
 constexpr int REC_F32 = 64;
-constexpr int RACE_F4 = 4;  // [0:16] of a record, as float4
+constexpr int RACE_F4 = 5;  // [0:16] and the box [44:48] of a record, as float4
+constexpr int BOX_F4 = 11;  // the box's float4 in the record
 constexpr int RES_F4 = 11;  // [0:44] of a record covers the 42 used floats
 constexpr int CHUNK = 32;   // records per staged chunk: two per 64-record segment
 constexpr int RACE_THREADS = 256;
@@ -104,15 +112,15 @@ __device__ __forceinline__ const float* list_record(const float* recs, const flo
     return v < nbig ? big + (size_t)v * REC_F32 : recs + (size_t)(start + v - nbig) * REC_F32;
 }
 
-// Stage list records [base, base + n) of a slot, the race's 16 floats of
-// each, into one buffer.
+// Stage list records [base, base + n) of a slot, the race's 20 floats of
+// each (float4s 0-3, then the box), into one buffer.
 __device__ __forceinline__ void stage_chunk(float4 (*buf)[RACE_F4], const float* recs,
                                             const float* big, int nbig, int start, int base,
                                             int n) {
     for (int i = threadIdx.x; i < n * RACE_F4; i += RACE_THREADS) {
         const int r = i / RACE_F4, part = i % RACE_F4;
-        work_list::cp_async16(&buf[r][part],
-                              list_record(recs, big, nbig, start, base + r) + part * 4);
+        work_list::cp_async16(&buf[r][part], list_record(recs, big, nbig, start, base + r) +
+                                                 (part < 4 ? part : BOX_F4) * 4);
     }
     work_list::cp_async_commit();
 }
@@ -180,16 +188,17 @@ raster_race_kernel(const float* __restrict__ recs, const float* __restrict__ big
         if (slot < 0) break;
 
         const int tile = tile_ids[slot];
-        const float nx = (((float)(tile % tiles_x) * (float)TILE_W + (float)col) + 0.5f) *
-                             ndc_sx - 1.0f;
-        float ny[PX_PER_THREAD], best[PX_PER_THREAD], maxd[PX_PER_THREAD];
+        // the pixel's indices (the box test) and its NDC centre
+        const float px = (float)(tile % tiles_x) * (float)TILE_W + (float)col;
+        const float nx = (px + 0.5f) * ndc_sx - 1.0f;
+        float py[PX_PER_THREAD], ny[PX_PER_THREAD], best[PX_PER_THREAD], maxd[PX_PER_THREAD];
         int best_i[PX_PER_THREAD];
 #pragma unroll
         for (int q = 0; q < PX_PER_THREAD; ++q) {
             const int row = row0 + q;
             const size_t pix = (size_t)slot * TILE_PX + row * TILE_W + col;
-            ny[q] = (((float)(tile / tiles_x) * (float)TILE_H + (float)row) + 0.5f) * ndc_sy -
-                    1.0f;
+            py[q] = (float)(tile / tiles_x) * (float)TILE_H + (float)row;
+            ny[q] = (py[q] + 0.5f) * ndc_sy - 1.0f;
             best[q] = init_depth[pix];
             maxd[q] = max_depth ? max_depth[pix] : __int_as_float(0x7f800000);
             best_i[q] = -1;
@@ -212,6 +221,7 @@ raster_race_kernel(const float* __restrict__ recs, const float* __restrict__ big
             for (int r = 0; r < m; ++r) {
                 const float4 q0 = buf[r * RACE_F4], q1 = buf[r * RACE_F4 + 1];
                 const float4 q2 = buf[r * RACE_F4 + 2], q3 = buf[r * RACE_F4 + 3];
+                const float4 box = buf[r * RACE_F4 + 4];
                 const float a0 = q0.x, b0 = q0.y, c0 = q0.z;
                 const float a1 = q0.w, b1 = q1.x, c1 = q1.y;
                 const float a2 = q1.z, b2 = q1.w, c2 = q2.x;
@@ -227,6 +237,8 @@ raster_race_kernel(const float* __restrict__ recs, const float* __restrict__ big
                     // most records cover few of a tile's pixels: the depth
                     // (and its divide) only where the triangle covers
                     if (!(covered(e0, a0, b0) && covered(e1, a1, b1) && covered(e2, a2, b2)))
+                        continue;
+                    if (!(px >= box.x && px <= box.z && py[q] >= box.y && py[q] <= box.w))
                         continue;
                     const float w_int = e0 * q3.x + e1 * q3.y + e2 * q3.z;
                     const float z_int = e0 * q2.y + e1 * q2.z + e2 * q2.w;

@@ -3,10 +3,14 @@
 //
 // Replaces the TPU kernel transmission_renderer_tpu/ops/raster_pallas.py
 // ::_raster_kernel (pl.pallas_call at raster_pallas.py:332). Each tile
-// walks the big-triangle list and its run of 16-float records (adjugate
-// edge rows, clip z and w, tri id + class) and races reversed-Z GREATER
-// against the seeded depth; the winner's triangle id, depth and two
-// perspective-correct barycentrics are written.
+// walks the big-triangle list and its run of 20-float records (adjugate
+// edge rows, clip z and w, tri id + class, and the pixel box: x0, y0, x1,
+// y1, inclusive pixel indices) and races reversed-Z GREATER against the
+// seeded depth; the winner's triangle id, depth and two perspective-correct
+// barycentrics are written. A record covers a pixel where its edge
+// functions pass the top-left rule and the pixel lies in its box (the
+// reference's 16-float record has no box: a sliver's float32 edge
+// functions can read "inside" past it).
 //
 // One template parameter picks the walk order, and with it which function
 // of the reference the kernel equals:
@@ -33,7 +37,8 @@
 //   and stages the records, 32 at a time, with double-buffered 16-byte
 //   cp.async copies. Each thread tests 4 pixels of the tile against each
 //   record (a shared-memory broadcast); the depth, and its divide, only
-//   where the three edge functions cover. It keeps the best per pixel by
+//   where the three edge functions cover and the pixel is in the record's
+//   box. It keeps the best per pixel by
 //   the order's own rule and merges it with one 64-bit atomicMax on the
 //   key (float bits of depth + 0 << 32) | (2^32 - 1 - id): + 0 folds -0
 //   into +0, so the key orders as the float compare does; id is the list
@@ -60,8 +65,8 @@
 //     depend on the walk order, so the race taps only the fragments that
 //     would beat the thread's current best: the same winners, with most
 //     taps skipped. Per triangle a side table holds the clip flag, the
-//     material and the three vertex uvs (the 16-float record stays as it
-//     is); the tap is atlas_tap.cuh's, kernel 2's.
+//     material and the three vertex uvs (the record stays as it is); the
+//     tap is atlas_tap.cuh's, kernel 2's.
 //   CHECKED (under --debug-checks, render/checks.py): every global index
 //     the kernel reads is tested against its bound first (the record rows
 //     of the run and of the big list, the seed depth, the triangle id, the
@@ -82,8 +87,9 @@
 
 namespace {
 
-constexpr int REC_F32 = 16;
-constexpr int REC_F4 = REC_F32 / 4;
+constexpr int REC_F32 = 20;
+constexpr int REC_F4 = REC_F32 / 4;  // the last is the pixel box
+constexpr int RES_F4 = 4;            // the resolve's [0:16]
 constexpr int CHUNK = 32;  // records per staged chunk: one per 32-record segment
 constexpr int RACE_THREADS = 256;
 constexpr int MAX_TILE_PX = 1024;
@@ -130,13 +136,16 @@ __device__ __forceinline__ float edge(float a, float b, float c, float nx, float
     return __fmaf_rn(a, nx, b * ny) + c;
 }
 
-// NDC centre of pixel `lane` of a tile, in the reference's order
+// Pixel indices (px, py) and NDC centre of pixel `lane` of a tile, in the
+// reference's order
 __device__ __forceinline__ void pixel_ndc(int tile, int lane, int tiles_x, int tile_w,
-                                          int tile_h, float ndc_sx, float ndc_sy, float& nx,
-                                          float& ny) {
+                                          int tile_h, float ndc_sx, float ndc_sy, float& px,
+                                          float& py, float& nx, float& ny) {
     const int row = lane / tile_w, col = lane % tile_w;
-    nx = (((float)(tile % tiles_x) * (float)tile_w + (float)col) + 0.5f) * ndc_sx - 1.0f;
-    ny = (((float)(tile / tiles_x) * (float)tile_h + (float)row) + 0.5f) * ndc_sy - 1.0f;
+    px = (float)(tile % tiles_x) * (float)tile_w + (float)col;
+    py = (float)(tile / tiles_x) * (float)tile_h + (float)row;
+    nx = (px + 0.5f) * ndc_sx - 1.0f;
+    ny = (py + 0.5f) * ndc_sy - 1.0f;
 }
 
 // Record v of a slot's list: the big list, then the run from `start`
@@ -274,12 +283,14 @@ raster_vis_race(const float* __restrict__ recs, const float* __restrict__ big,
 
         const int tile = tile_ids[slot];
         const int start = run_start[slot];
-        float nx[PX_PER_THREAD], ny[PX_PER_THREAD], best[PX_PER_THREAD];
+        float px[PX_PER_THREAD], py[PX_PER_THREAD], nx[PX_PER_THREAD], ny[PX_PER_THREAD];
+        float best[PX_PER_THREAD];
         int best_id[PX_PER_THREAD];  // list position or tri id; -1: none
 #pragma unroll
         for (int q = 0; q < PX_PER_THREAD; ++q) {
             const int p = threadIdx.x + q * RACE_THREADS;
-            pixel_ndc(tile, p, tiles_x, tile_w, tile_h, ndc_sx, ndc_sy, nx[q], ny[q]);
+            pixel_ndc(tile, p, tiles_x, tile_w, tile_h, ndc_sx, ndc_sy, px[q], py[q], nx[q],
+                      ny[q]);
             const long long at = (long long)slot * tile_px + p;
             // no record beats +inf: the pixels past a small tile's end
             if (p >= tile_px) {
@@ -313,6 +324,7 @@ raster_vis_race(const float* __restrict__ recs, const float* __restrict__ big,
             for (int r = 0; r < m; ++r) {
                 const float4 q0 = buf[r * REC_F4], q1 = buf[r * REC_F4 + 1];
                 const float4 q2 = buf[r * REC_F4 + 2], q3 = buf[r * REC_F4 + 3];
+                const float4 box = buf[r * REC_F4 + 4];
                 const int tri_enc = (int)q3.w;
                 // padding and the class filter are the record's: uniform branches
                 if (tri_enc < 0) continue;
@@ -331,6 +343,8 @@ raster_vis_race(const float* __restrict__ recs, const float* __restrict__ big,
                     // most records cover few of a tile's pixels: the depth
                     // (and its divide) only where the triangle covers
                     if (!(covered(e0, a0, b0) && covered(e1, a1, b1) && covered(e2, a2, b2)))
+                        continue;
+                    if (!(px[q] >= box.x && px[q] <= box.z && py[q] >= box.y && py[q] <= box.w))
                         continue;
                     const float w_int = __fmaf_rn(e2, q3.z, __fmaf_rn(e0, q3.x, e1 * q3.y));
                     const float z_int = __fmaf_rn(e2, q2.w, __fmaf_rn(e0, q2.y, e1 * q2.z));
@@ -399,18 +413,18 @@ raster_vis_resolve(const float* __restrict__ recs, const float* __restrict__ big
         }
     }
     if (src != nullptr) {
-        float rec[REC_F32];
+        float rec[RES_F4 * 4];
 #pragma unroll
-        for (int i = 0; i < REC_F4; ++i) {
+        for (int i = 0; i < RES_F4; ++i) {
             const float4 v = __ldg(reinterpret_cast<const float4*>(src) + i);
             rec[4 * i] = v.x;
             rec[4 * i + 1] = v.y;
             rec[4 * i + 2] = v.z;
             rec[4 * i + 3] = v.w;
         }
-        float nx, ny;
+        float px, py, nx, ny;
         pixel_ndc(tile_ids[k], (int)(pix % tile_px), tiles_x, tile_w, tile_h, ndc_sx, ndc_sy,
-                  nx, ny);
+                  px, py, nx, ny);
         const float e0 = edge(rec[0], rec[1], rec[2], nx, ny);
         const float e1 = edge(rec[3], rec[4], rec[5], nx, ny);
         const float e2 = edge(rec[6], rec[7], rec[8], nx, ny);

@@ -2,7 +2,8 @@
 
 Counterpart of ``transmission_renderer_tpu/ops/raster.py``:
 ``setup_triangles`` (2D-homogeneous adjugate edge functions, backface and
-off-screen culls, tile bounding boxes), ``VisibilityBuffer``, both modes
+off-screen culls, tile bounding boxes, and the pixel box that bounds a
+triangle's coverage in the rasters), ``VisibilityBuffer``, both modes
 of ``bin_triangles`` (``bin_triangles``: the G-buffer kernel path's
 ``materialize=False`` mode with class-split bins, the ``pallas_tiers``
 demotion ladder and the optional pair-stream compaction
@@ -41,6 +42,10 @@ class TriangleSetup(NamedTuple):
     w_clip: torch.Tensor  # [T, 3]
     valid: torch.Tensor  # [T] bool
     tile_bbox: torch.Tensor  # [T, 4] int32 (tx0, ty0, tx1, ty1) inclusive
+    # [T, 4] float32 (x0, y0, x1, y1) inclusive pixel indices: the screen
+    # box widened by one pixel (the whole screen for a vertex behind the
+    # eye), past which the rasters draw no pixel; the records carry it
+    pixel_box: torch.Tensor
 
 
 class VisibilityBuffer(NamedTuple):
@@ -125,6 +130,11 @@ def _tile_index(v: torch.Tensor, tile: int, n: int) -> torch.Tensor:
     return torch.clamp(v, 0, n - 1).to(torch.int32)
 
 
+def _pixel_bound(v: torch.Tensor, n: int) -> torch.Tensor:
+    """clip(v, 0, n - 1), NaN reading 0: a pixel index, kept in float32."""
+    return torch.clamp(torch.nan_to_num(v, nan=0.0), 0, n - 1)
+
+
 def setup_triangles(
     clip_positions: torch.Tensor,  # [V, 4]
     tri_vertices: torch.Tensor,  # [T, 3] int32
@@ -135,7 +145,13 @@ def setup_triangles(
     tile_h: int,
 ) -> TriangleSetup:
     """Adjugate edge matrix, orientation cull (front faces have
-    det < 0 under the y-flipping projection), tile bbox."""
+    det < 0 under the y-flipping projection), tile bbox and pixel box.
+
+    The pixel box bounds coverage: a sliver's float32 edge functions can
+    read "inside" at a pixel past its vertices' screen box (float64 reads
+    outside there), and no pixel centre outside the box widened by one
+    pixel lies inside the triangle. The JAX package keeps only the tile
+    box and draws such pixels."""
     v = clip_positions[tri_vertices.long()]  # [T, 3, 4]
     x, y, z, w = v[..., 0], v[..., 1], v[..., 2], v[..., 3]
     m = torch.stack([x, y, w], dim=-2)  # [T, 3(xyw), 3(vertex)]
@@ -158,6 +174,12 @@ def setup_triangles(
     ty0 = _tile_index(y0, tile_h, tiles_y)
     tx1 = _tile_index(x1 - 1e-6, tile_w, tiles_x)
     ty1 = _tile_index(y1 - 1e-6, tile_h, tiles_y)
+    # [floor(min) - 1, floor(max) + 1]; behind the eye, x0 = 0 and x1 =
+    # width clamp to the whole screen
+    pixel_box = torch.stack([
+        _pixel_bound(torch.floor(x0) - 1.0, width), _pixel_bound(torch.floor(y0) - 1.0, height),
+        _pixel_bound(torch.floor(x1) + 1.0, width), _pixel_bound(torch.floor(y1) + 1.0, height),
+    ], dim=-1)
     on_screen = (x1 > 0) & (x0 < width) & (y1 > 0) & (y0 < height)
     valid = valid & (any_behind | on_screen)
     # every w <= 0: no fragment can pass the w_interp > 0 test
@@ -168,6 +190,7 @@ def setup_triangles(
         w_clip=w,
         valid=valid,
         tile_bbox=torch.stack([tx0, ty0, tx1, ty1], dim=-1),
+        pixel_box=pixel_box,
     )
 
 

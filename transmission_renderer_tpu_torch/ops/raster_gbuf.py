@@ -11,7 +11,10 @@ per-pixel resolve; one call of the handle) for CUDA tensors and runs
 Record layout (64 f32, 2 per 128-wide payload row): [0:9] signed
 adjugate rows, [9:12] clip z, [12:15] clip w, [15] tri id + CLASS_BIT *
 draw class, [16:40] three vertices of pos.xyz nrm.xyz uv.xy, [40]
-material id, [41] instance scale, [42:64] padding.
+material id, [41] instance scale, [44:48] the pixel box (x0, y0, x1, y1:
+inclusive pixel indices, ops/raster.py::setup_triangles), [42:44] and
+[48:64] padding. A record covers a pixel where its three edge functions
+pass the top-left rule and the pixel lies in its box.
 
 Each tile walks one list of records: the big list (``big_count``
 records of ``payload[1]``, walked by every tile; empty on the frame's
@@ -47,6 +50,7 @@ from transmission_renderer_tpu_torch.render.gbuffer import GBuffer
 TILE_H = 8
 TILE_W = 128
 REC_F32 = 64
+BOX_F32 = 44  # the pixel box's first float: one aligned float4
 RECS_PER_ROW = 128 // REC_F32
 CHUNK_ROWS = 16  # zero rows padded after the payload, as the reference
 CLASS_SHIFT = 22
@@ -111,7 +115,9 @@ def pack_gbuf_payload(
             v.reshape(t, 24),
             tri_material.to(torch.float32)[:, None],
             tri_scale[:, None],
-            torch.zeros((t, REC_F32 - 42), dtype=torch.float32,
+            torch.zeros((t, BOX_F32 - 42), dtype=torch.float32, device=setup.adj.device),
+            setup.pixel_box,
+            torch.zeros((t, REC_F32 - BOX_F32 - 4), dtype=torch.float32,
                         device=setup.adj.device),
         ],
         dim=1,
@@ -177,9 +183,10 @@ def _list_rows(start, slot, v, nbig):
     return torch.where(v < nbig, v, start[slot] + v)
 
 
-def _pixel_ndc(tile_ids, width, height, tile_w=TILE_W, tile_h=TILE_H):
-    """(nx, ny) [K, tile_h, tile_w]: the NDC centre of each pixel of the
-    listed tiles, in the kernels' arithmetic order (kernels 1 and 6)."""
+def _pixel_xy(tile_ids, width, tile_w=TILE_W, tile_h=TILE_H):
+    """(px, py) [K, tile_h, tile_w] float32: the pixel indices of each
+    pixel of the listed tiles, as the kernels compute them (kernels 1
+    and 6), which the pixel box test reads."""
     dev = tile_ids.device
     tiles_x = -(-width // tile_w)
     tid = tile_ids.long()
@@ -187,10 +194,16 @@ def _pixel_ndc(tile_ids, width, height, tile_w=TILE_W, tile_h=TILE_H):
     rows = torch.arange(tile_h, dtype=torch.float32, device=dev)
     tx = (tid % tiles_x).to(torch.float32)[:, None, None]
     ty = (tid // tiles_x).to(torch.float32)[:, None, None]
-    nx = ((tx * tile_w + cols[None, None, :]) + 0.5) * (2.0 / width) - 1.0
-    ny = ((ty * tile_h + rows[None, :, None]) + 0.5) * (2.0 / height) - 1.0
     shape = (tid.shape[0], tile_h, tile_w)
-    return nx.expand(shape), ny.expand(shape)
+    return ((tx * tile_w + cols[None, None, :]).expand(shape),
+            (ty * tile_h + rows[None, :, None]).expand(shape))
+
+
+def _pixel_ndc(tile_ids, width, height, tile_w=TILE_W, tile_h=TILE_H):
+    """(nx, ny) [K, tile_h, tile_w]: the NDC centre of each pixel of the
+    listed tiles, in the kernels' arithmetic order (kernels 1 and 6)."""
+    px, py = _pixel_xy(tile_ids, width, tile_w, tile_h)
+    return (px + 0.5) * (2.0 / width) - 1.0, (py + 0.5) * (2.0 / height) - 1.0
 
 
 def gbuf_work_list(count: torch.Tensor, segment: int = SEG):
@@ -230,21 +243,29 @@ def _edges(f, nx, ny):
     return a0 * nx + b0 * ny + c0, a1 * nx + b1 * ny + c1, a2 * nx + b2 * ny + c2
 
 
-def _covers(f, e):
-    """Top-left coverage of the record whose float i is f(i) at the
-    pixels of its edge functions e."""
+def in_box(f, px, py, at: int):
+    """Where pixels (px, py) lie in the pixel box held at floats at..at+3
+    (x0, y0, x1, y1) of the record whose float i is f(i) (kernels 1 and
+    6; the kernels test it only where the edge functions cover)."""
+    return (px >= f(at)) & (px <= f(at + 2)) & (py >= f(at + 1)) & (py <= f(at + 3))
+
+
+def _covers(f, e, p):
+    """Coverage of the record whose float i is f(i) at the pixels p = (px,
+    py) of its edge functions e: the top-left rule, inside its pixel box."""
     def covered(e, a, b):
         tl = (a > 0) | ((a == 0) & (b > 0))
         return (e > 0) | ((e == 0) & tl)
 
-    return covered(e[0], f(0), f(1)) & covered(e[1], f(3), f(4)) & covered(e[2], f(6), f(7))
+    inside = covered(e[0], f(0), f(1)) & covered(e[1], f(3), f(4)) & covered(e[2], f(6), f(7))
+    return inside & in_box(f, *p, BOX_F32)
 
 
-def _race_test(f, e, pass_class):
-    """(inside, depth, encoded tri id) of a record at the pixels of its
-    edge functions e: top-left coverage, w > 0, depth in [0, 1], class."""
+def _race_test(f, e, p, pass_class):
+    """(inside, depth, encoded tri id) of a record at the pixels p of its
+    edge functions e: coverage, w > 0, depth in [0, 1], class."""
     e0, e1, e2 = e
-    inside = _covers(f, e)
+    inside = _covers(f, e, p)
     w_int = e0 * f(12) + e1 * f(13) + e2 * f(14)
     z_int = e0 * f(9) + e1 * f(10) + e2 * f(11)
     depth = z_int / w_int
@@ -322,6 +343,7 @@ def rasterize_gbuffer_tiles_plain(
                               _num_classes(tile_start, width, height, n_tiles_global),
                               pass_class)
     nx, ny = _pixel_ndc(tile_ids, width, height)
+    px, py = _pixel_xy(tile_ids, width)
     shape = (k_tiles, TILE_H, TILE_W)
 
     names = active_channels(pos_derivs, uv_channels)
@@ -337,7 +359,7 @@ def rasterize_gbuffer_tiles_plain(
         ch["depth"].copy_(init_depth_tiles)
     if segment is not None:
         lrecs = torch.cat([big, recs]) if nbig else recs
-        key = _race_segments(lrecs, nbig, nx, ny, start, count, ch["depth"],
+        key = _race_segments(lrecs, nbig, (nx, ny, px, py), start, count, ch["depth"],
                              max_depth_tiles, pass_class, segment)
         won = key != 0
         k = torch.arange(k_tiles, device=dev)[:, None, None].expand(shape)
@@ -346,14 +368,14 @@ def rasterize_gbuffer_tiles_plain(
         f = lambda i: rw[..., i]  # noqa: E731
         e = _edges(f, nx, ny)
         vals = _interpolate(f, e, names, width, height)
-        vals["depth"] = _race_test(f, e, None)[1]
+        vals["depth"] = _race_test(f, e, (px, py), None)[1]
         return {n: torch.where(won, vals[n], ch[n]) for n in names}
 
     def race(r, act):
         """Race one record per listed tile of ``act`` (r [A or 1, 64])."""
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
         e = _edges(f, nx[act], ny[act])
-        inside, depth, _ = _race_test(f, e, pass_class)
+        inside, depth, _ = _race_test(f, e, (px[act], py[act]), pass_class)
         win = inside & (depth > ch["depth"][act])
         if max_depth_tiles is not None:
             win &= depth < max_depth_tiles[act]
@@ -370,11 +392,12 @@ def rasterize_gbuffer_tiles_plain(
     return ch
 
 
-def _race_segments(lrecs, nbig, nx, ny, start, count, seed, max_depth, pass_class,
+def _race_segments(lrecs, nbig, pixels, start, count, seed, max_depth, pass_class,
                    segment):
     """Each work item's depth race from the seed over its segment of the
     slot's list (the big list at positions [0, nbig) of ``lrecs``, then the
-    run), merged per pixel of each tile slot into the key (float bits of
+    run; ``pixels`` = (nx, ny, px, py) of every slot's pixels), merged per
+    pixel of each tile slot into the key (float bits of
     depth + 0 << 32) | (2^32 - 1 - list position) [K, 8, 128] int64; 0
     where no record won. The + 0 turns -0 into +0, so that the key orders
     as the depth does."""
@@ -387,7 +410,8 @@ def _race_segments(lrecs, nbig, nx, ny, start, count, seed, max_depth, pass_clas
         v = begin[act] + j
         r = lrecs[_list_rows(start, slot[act], v, nbig)]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
-        inside, depth, _ = _race_test(f, _edges(f, nx[slot[act]], ny[slot[act]]), pass_class)
+        nx, ny, px, py = (a[slot[act]] for a in pixels)
+        inside, depth, _ = _race_test(f, _edges(f, nx, ny), (px, py), pass_class)
         win = inside & (depth > best[act])
         if max_depth is not None:
             win &= depth < max_depth[slot[act]]
@@ -402,9 +426,9 @@ def _race_segments(lrecs, nbig, nx, ny, start, count, seed, max_depth, pass_clas
 def covered_pairs(payload, tile_ids, tile_start, width, height, pass_class=None,
                   big_count=0, chunk: int = 4096, n_tiles_global=None) -> int:
     """The (pixel, record) pairs of one call whose record covers the pixel
-    (top-left rule, records of ``pass_class``; each tile's list, the big
-    list then its run): where the race goes on from the edge functions to
-    the depth, the rest of its work per pair."""
+    (top-left rule inside its pixel box, records of ``pass_class``; each
+    tile's list, the big list then its run): where the race goes on from
+    the edge functions to the depth, the rest of its work per pair."""
     recs = payload[0].reshape(-1, REC_F32)
     big, nbig = _big_records(payload, big_count)
     lrecs = torch.cat([big, recs]) if nbig else recs
@@ -414,12 +438,13 @@ def covered_pairs(payload, tile_ids, tile_start, width, height, pass_class=None,
     # one item per (tile slot, list position)
     slot, v, _ = work_items(torch.zeros_like(count), nbig + count, 1)
     nx, ny = _pixel_ndc(tile_ids, width, height)
+    px, py = _pixel_xy(tile_ids, width)
     total = 0
     for s in range(0, slot.shape[0], chunk):
         sl = slot[s : s + chunk]
         r = lrecs[_list_rows(start, sl, v[s : s + chunk], nbig)]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
-        inside = _covers(f, _edges(f, nx[sl], ny[sl]))
+        inside = _covers(f, _edges(f, nx[sl], ny[sl]), (px[sl], py[sl]))
         if pass_class is not None:
             inside &= (f(15).to(torch.int32) >> CLASS_SHIFT) == pass_class
         total += int(inside.sum())

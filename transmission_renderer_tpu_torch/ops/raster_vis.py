@@ -52,10 +52,15 @@ computes exactly these (the kernel with fmaf, the plain version through
 float64), which reproduces the reference's depths and barycentrics bit
 for bit, and with them its coverage and depth-race decisions.
 
-Record layout [N, 16] float32: signed adjugate rows (9), clip z (3),
-clip w (3), tri id + CLASS_BIT * class as a float value (1). The TPU
-kernel packed 8 records per 128-lane row for its DMA; here a record is a
-row of its own.
+Record layout [N, 20] float32: signed adjugate rows (9), clip z (3),
+clip w (3), tri id + CLASS_BIT * class as a float value (1), then the
+pixel box (x0, y0, x1, y1: inclusive pixel indices,
+ops/raster.py::setup_triangles) (4). A record covers a pixel where its
+edge functions pass the top-left rule and the pixel lies in its box; the
+reference's 16-float record has no box, and covers a sliver's pixels
+past it where float32 edge functions read "inside". The TPU kernel
+packed 8 records per 128-lane row for its DMA; here a record is a row of
+its own.
 """
 
 from __future__ import annotations
@@ -74,7 +79,12 @@ from transmission_renderer_tpu_torch.ops.raster import (
     tile_image,
     untile_image,
 )
-from transmission_renderer_tpu_torch.ops.raster_gbuf import _pixel_ndc, work_items
+from transmission_renderer_tpu_torch.ops.raster_gbuf import (
+    _pixel_ndc,
+    _pixel_xy,
+    in_box,
+    work_items,
+)
 from transmission_renderer_tpu_torch.ops.texture import (
     WRAP_REPEAT,
     atlas_classes,
@@ -87,7 +97,8 @@ from transmission_renderer_tpu_torch.scene.textures import IMAGE_MASK, LAYER_SHI
 
 TILE_H = 8
 TILE_W = 128
-REC_F32 = 16
+REC_F32 = 20
+BOX_F32 = 16  # the pixel box's first float: one aligned float4
 CLASS_SHIFT = 22
 CLASS_BIT = 1 << CLASS_SHIFT
 MAX_TILE_PX = 1024  # the kernel's race tests 4 pixels a thread, 256 threads a block
@@ -111,8 +122,8 @@ CHECK_SITES = {
 
 class VisAlpha(NamedTuple):
     """What the raster's alpha test reads (render/frame.py::vis_alpha
-    builds it): per triangle a side table (the 16-float record stays as it
-    is), per material its diffuse texture and factors, and the atlas."""
+    builds it): per triangle a side table (the record stays as it is), per
+    material its diffuse texture and factors, and the atlas."""
 
     tri_clip: torch.Tensor  # [T] int32, 1: bucket ALPHA_CLIP or TRANSMISSION_ALPHA_CLIP
     tri_material: torch.Tensor  # [T] int32
@@ -186,7 +197,7 @@ def alpha_keep(alpha: VisAlpha, f, e, width: int, height: int) -> torch.Tensor:
 
 def _alpha_gate(alpha: VisAlpha, win: torch.Tensor, rec: torch.Tensor, e, width: int,
                 height: int) -> torch.Tensor:
-    """``win`` ([A, th, tw]: the fragments of records rec [A or 1, 16] that
+    """``win`` ([A, th, tw]: the fragments of records rec [A or 1, 20] that
     would beat the current best) with the alpha test's kills removed; only
     those fragments are tapped."""
     at = torch.nonzero(win, as_tuple=True)
@@ -202,7 +213,7 @@ def _alpha_gate(alpha: VisAlpha, win: torch.Tensor, rec: torch.Tensor, e, width:
 
 def pack_payload(setup: TriangleSetup, class_flags: torch.Tensor | None = None
                  ) -> torch.Tensor:
-    """[T, 16] float32 records; ``class_flags`` ([T], 1 = transmissive)
+    """[T, 20] float32 records; ``class_flags`` ([T], 1 = transmissive)
     selects each record's draw class."""
     t = setup.adj.shape[0]
     if t > CLASS_BIT:
@@ -211,13 +222,13 @@ def pack_payload(setup: TriangleSetup, class_flags: torch.Tensor | None = None
     if class_flags is not None:
         ids = ids + CLASS_BIT * class_flags.to(torch.int32)
     return torch.cat([setup.adj.reshape(t, 9), setup.z_clip, setup.w_clip,
-                      ids.to(torch.float32)[:, None]], dim=1)
+                      ids.to(torch.float32)[:, None], setup.pixel_box], dim=1)
 
 
 def gather_bin_payload(setup: TriangleSetup, bins: TileBins,
                        class_flags: torch.Tensor | None = None):
-    """(records in sorted-pair order [S, 16], big-list records [B, 16],
-    the records by triangle id [T + 1, 16]); -1 entries read the last row,
+    """(records in sorted-pair order [S, 20], big-list records [B, 20],
+    the records by triangle id [T + 1, 20]); -1 entries read the last row,
     a degenerate record (all-zero edges never cover). A triangle's record
     is the same row wherever it is gathered: the kernel's resolve reads
     the XLA-order winner by its id in the third tensor."""
@@ -246,11 +257,12 @@ def _edges(f, nx, ny):
             _fma(f(6), nx, f(7) * ny) + f(8))
 
 
-def _covers(f, e, pass_class):
-    """Where the record whose float i is f(i) covers the pixels of its
-    edge functions e (top-left rule), if it is of ``pass_class`` and not
-    padding (tri id < 0)."""
+def _covers(f, e, p, pass_class):
+    """Where the record whose float i is f(i) covers the pixels p = (px,
+    py) of its edge functions e (top-left rule, inside its pixel box), if
+    it is of ``pass_class`` and not padding (tri id < 0)."""
     inside = _covered(e[0], f(0), f(1)) & _covered(e[1], f(3), f(4)) & _covered(e[2], f(6), f(7))
+    inside &= in_box(f, *p, BOX_F32)
     tri_enc = f(15).to(torch.int32)
     inside &= tri_enc >= 0
     if pass_class is not None:
@@ -266,10 +278,10 @@ def _depth(f, e):
     return w_int, z_int / w_int
 
 
-def _race_test(f, e, pass_class):
-    """(inside, depth, tri id) of a record at the pixels of its edge
+def _race_test(f, e, p, pass_class):
+    """(inside, depth, tri id) of a record at the pixels p of its edge
     functions e: coverage, class, w > 0 and depth in [0, 1]."""
-    inside = _covers(f, e, pass_class)
+    inside = _covers(f, e, p, pass_class)
     w_int, depth = _depth(f, e)
     inside &= (w_int > 0) & (depth >= 0.0) & (depth <= 1.0)
     return inside, depth, f(15).to(torch.int32) & (CLASS_BIT - 1)
@@ -294,7 +306,7 @@ def list_lengths(run_count: torch.Tensor, big_count: torch.Tensor) -> torch.Tens
 
 def _list_rows(run_start, slot, v, nbig, n_big_rows, n_records, used=None):
     """Row of list position v of ``slot`` in cat([big, records]) (big:
-    [n_big_rows, 16], of which the list walks nbig), each checked against
+    [n_big_rows, 20], of which the list walks nbig), each checked against
     its array (render/checks.py::index) where ``used``."""
     is_big = v < nbig
     is_run = ~is_big
@@ -307,7 +319,7 @@ def _list_rows(run_start, slot, v, nbig, n_big_rows, n_records, used=None):
 
 
 def raster_vis_plain(
-    payload: tuple,  # (records [S, 16], big [B, 16], rows [T + 1, 16])
+    payload: tuple,  # (records [S, 20], big [B, 20], rows [T + 1, 20])
     tile_ids: torch.Tensor,  # [K] int32 global tile ids
     run_start: torch.Tensor,  # [K] int32 first record of each tile's run
     run_count: torch.Tensor,  # [K] int32 records in each run
@@ -337,11 +349,13 @@ def raster_vis_plain(
     k_tiles = tile_ids.shape[0]
     shape = (k_tiles, tile_h, tile_w)
     nx, ny = _pixel_ndc(tile_ids, width, height, tile_w, tile_h)
+    px, py = _pixel_xy(tile_ids, width, tile_w, tile_h)
     seed = (init_depth_tiles.clone() if init_depth_tiles is not None
             else torch.zeros(shape, dtype=torch.float32, device=dev))
     if segment is not None:
-        return _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
-                          pass_class, xla_order, segment, alpha, width, height)
+        return _segmented(payload, tile_ids, run_start, run_count, big_count,
+                          (nx, ny, px, py), seed, pass_class, xla_order, segment, alpha,
+                          width, height)
 
     best_tri = torch.full(shape, -1, dtype=torch.int32, device=dev)
     best_depth = seed
@@ -349,10 +363,10 @@ def raster_vis_plain(
     best_b2 = torch.zeros(shape, dtype=torch.float32, device=dev)
 
     def race(rec, act):
-        """Race one record per active tile (rec [A or 1, 16])."""
+        """Race one record per active tile (rec [A or 1, 20])."""
         f = lambda i: rec[:, i][:, None, None]  # noqa: E731
         e = _edges(f, nx[act], ny[act])
-        inside, depth, tri = _race_test(f, e, pass_class)
+        inside, depth, tri = _race_test(f, e, (px[act], py[act]), pass_class)
         bd, bt = best_depth[act], best_tri[act]
         if xla_order:
             win = inside & ((depth > bd) | ((depth == bd) & (tri < bt)))
@@ -389,9 +403,10 @@ def raster_vis_plain(
     return best_tri, best_depth, best_b1, best_b2
 
 
-def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed, pass_class,
+def _segmented(payload, tile_ids, run_start, run_count, big_count, pixels, seed, pass_class,
                xla_order, segment, alpha=None, width=0, height=0) -> tuple:
-    """raster_vis_plain's segmented race: each work item (a tile slot's
+    """raster_vis_plain's segmented race (``pixels`` = (nx, ny, px, py) of
+    every slot's pixels): each work item (a tile slot's
     list segment) raced from the seed by the order's rule, the winners
     merged per pixel by the key (float bits of depth + 0 << 32) | (2^32 -
     1 - id) (id: the list position in kernel-6 order, the triangle id in
@@ -399,6 +414,7 @@ def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
     pixel."""
     records, big, rows = payload
     dev = records.device
+    nx, ny, px, py = pixels
     nbig = int(big_count[0])
     recs = torch.cat([big, records])  # row nb + r: records[r]
     nb = big.shape[0]
@@ -412,7 +428,7 @@ def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
         r = recs[_list_rows(run_start, slot[act], v, nbig, nb, records.shape[0])]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
         e = _edges(f, nx[slot[act]], ny[slot[act]])
-        inside, depth, tri = _race_test(f, e, pass_class)
+        inside, depth, tri = _race_test(f, e, (px[slot[act]], py[slot[act]]), pass_class)
         idv = tri.long() if xla_order else v[:, None, None]
         bd, bi = best[act], best_id[act]
         win = inside & (depth > bd)
@@ -448,8 +464,8 @@ def _segmented(payload, tile_ids, run_start, run_count, big_count, nx, ny, seed,
 def covered_pairs(payload, tile_ids, run_start, run_count, big_count, width, height,
                   tile_w, tile_h, pass_class=None, chunk: int = 4096) -> int:
     """The (pixel, record) pairs of one call whose record covers the pixel
-    (top-left rule, records of ``pass_class``, not padding), over each
-    tile's run and the big list: where the race goes on from the edge
+    (top-left rule inside its pixel box, records of ``pass_class``, not
+    padding), over each tile's run and the big list: where the race goes on from the edge
     functions to the depth, the rest of its work per pair."""
     records, big = payload[0], payload[1]
     nbig = int(big_count[0])
@@ -457,13 +473,14 @@ def covered_pairs(payload, tile_ids, run_start, run_count, big_count, width, hei
     slot, v, _ = work_items(torch.zeros_like(run_count.long()),
                             list_lengths(run_count, big_count), 1)
     nx, ny = _pixel_ndc(tile_ids, width, height, tile_w, tile_h)
+    px, py = _pixel_xy(tile_ids, width, tile_w, tile_h)
     total = 0
     for s in range(0, slot.shape[0], chunk):
         sl = slot[s : s + chunk]
         r = recs[_list_rows(run_start, sl, v[s : s + chunk], nbig, big.shape[0],
                             records.shape[0])]
         f = lambda i: r[:, i][:, None, None]  # noqa: E731
-        total += int(_covers(f, _edges(f, nx[sl], ny[sl]), pass_class).sum())
+        total += int(_covers(f, _edges(f, nx[sl], ny[sl]), (px[sl], py[sl]), pass_class).sum())
     return total
 
 

@@ -111,7 +111,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    the others as phase 4); (b) with the counts reset, the frame launches
    raster 10 (opaque, the class-2 peel's first round and 3 re-races,
    transmission, the class-3 peel's first round and 3 re-races), tap 1,
-   shade 2, fetch 1, clip_alpha 8 (one alpha test per round); (c)
+   shade 2, fetch 1, clip_alpha 8 (one alpha test per round),
+   clip_worklist 6 and clip_merge 6 (one each per re-race round); (c)
    FrameDiagnostics at the bench's camera (yaw 0) and at its
    sweep's far end (the bench's smoothed rig after target yaw 0.18,
    bench_rig): the clip caps [608, 162, 41], no capacity overflow but the
@@ -122,10 +123,13 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    (the reference's 1080p frame, rendered on the CPU by its
    visibility-buffer branch); at the bench config the RMSE over the frame
    and outside the tiles holding unresolved pixels is printed, and the
-   converged frame's 16 alpha tests through check_clip_alpha; (e) median
+   converged frame's 16 alpha tests through check_clip_alpha and its 14
+   re-race rounds' worklists and merges (csrc/clip_peel.cu) through
+   check_clip_peel; (e) median
    ms/frame over 10 frames after 2 warm-ups, per-pass ms (the peel's
-   ranges too), kernel 1's ms over the frame's calls and the alpha
-   test's over the converged frame's (the benchmark's peel) beside their
+   ranges too), kernel 1's ms over the frame's calls, the alpha
+   test's over the converged frame's (the benchmark's peel) and the
+   worklists' and merges' in a profiled converged frame beside their
    plain versions' and their bounds. Its launch counts are printed on a
    line of their own before the kernels line.
 10. the bench's other scenes (bench.py:275-293; BENCH_SCENES): the
@@ -246,7 +250,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
    2e-6 counted; diagnostics equal to (a)'s; every kernel call of the
    last band, whose tiles run into the rows padded below the frame,
    against its plain version; (c) on 2 ranks the stress frame with its
-   peel converged against stress_hd.png (sRGB RMSE < 4e-3) and (d) the
+   peel converged against stress_hd.png (sRGB RMSE < 4e-3), its alpha
+   tests, and its 14 re-race rounds' worklists and merges on the band's
+   tile ids, bit for bit against their plain versions on every rank
+   (check_clip_alpha, check_clip_peel), and (d) the
    ray-traced flagship within 2e-6 of (a)'s off the glass, kernel 5's
    calls of every band exact against the plain walk; (e) cli.main with
    --devices 2 exits 2 with the reference's "only 1 available" on one
@@ -872,6 +879,97 @@ def check_clip_alpha(calls, max_err, tag: str) -> None:
     max_err["clip_alpha"] = 0.0
 
 
+def snapshot(x):
+    """``x`` with every tensor in it copied (tuples, lists and dicts
+    walked)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: snapshot(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(snapshot(v) for v in x)
+    return x
+
+
+class Snapshots(list):
+    """A KernelHandle recorder that keeps each call's arguments as they
+    were when the call was made: the peel's worklist and merge read a
+    state and ok that later rounds change in place."""
+
+    def append(self, call):
+        super().append(snapshot(call))
+
+
+def words(t):
+    """A float32 tensor's bits as int32 (other tensors as they are)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+# the peel's re-race kernels (csrc/clip_peel.cu)
+PEEL_KERNELS = ("peel_flag_kernel", "peel_compact_kernel", "peel_gather_kernel",
+                "peel_merge_kernel")
+
+
+def check_clip_peel(wl_calls, mg_calls, tag: str) -> None:
+    """Replay each recorded round's worklist (render/frame.py::
+    CLIP_WORKLIST_KERNEL) and merge (CLIP_MERGE_KERNEL), recorded by
+    Snapshots, through the kernels and the plain versions, each over a
+    copy of its arguments: every output, and the merged state and raced
+    channels, equal bit for bit; raise on a difference."""
+    from transmission_renderer_tpu_torch.render.frame import (
+        CLIP_MERGE_KERNEL as mg,
+        CLIP_WORKLIST_KERNEL as wl,
+    )
+
+    require(len(wl_calls) > 0 and len(wl_calls) == len(mg_calls),
+            f"{tag}clip_peel: {len(wl_calls)} worklists, {len(mg_calls)} merges")
+    for i, (wc, mc) in enumerate(zip(wl_calls, mg_calls)):
+        got, ref = wl.replay(snapshot(wc), True), wl.replay(snapshot(wc), False)
+        bad_wl = sum(int((words(g) != words(r)).sum()) for g, r in zip(got, ref))
+        a, b = snapshot(mc), snapshot(mc)
+        mg.replay(a, True)
+        mg.replay(b, False)
+        (sa, _, _, ra), (sb, _, _, rb) = a[0], b[0]
+        bad_mg = int((words(sa) != words(sb)).sum()) + sum(
+            int((words(ra[n]) != words(rb[n])).sum()) for n in ra)
+        n_tiles, cap = wc[0][0].shape[1], wc[0][5]
+        ok = bad_wl == 0 and bad_mg == 0
+        log(f"parity {tag}clip_peel[{i}]: demand {int(got[2])} of {n_tiles} tiles, cap {cap}, "
+            f"{int((got[0] >= n_tiles).sum())} empty slots; words differing: worklist "
+            f"{bad_wl}, merge {bad_mg}, {'ok' if ok else 'FAIL'}")
+        require(ok, "clip_peel: a kernel disagrees with its plain version")
+
+
+def clip_peel_work(wl_call, mg_call) -> tuple:
+    """(bytes, 0) one re-race round's worklist and merge must move: every
+    tile's tri and ok (5 B a pixel) to find the failing tiles; per slot
+    pixel its seed and state depth read and kernel 1's two inputs written
+    (16 B); per live slot's pixel its tri and ok (5 B) and per channel one
+    word read and one written (8 B). No arithmetic."""
+    (state, _, _, _, _, cap), _ = wl_call
+    (_, _, ids, _), _ = mg_call
+    n_ch, n_tiles = state.shape[:2]
+    live = int((ids < n_tiles).sum())
+    return (n_tiles * 5 + cap * 16 + live * (5 + 8 * n_ch)) * 8 * 128, 0
+
+
+def profiled_kernel_ms(frame, names) -> float:
+    """Device ms of the kernels whose names hold one of ``names`` in one
+    profiled ``frame()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if any(n in ev.key for n in names)) / 1000.0
+
+
 def check_occlusion(calls, n_kinds: int, tag: str, tri_vertices, positions) -> list:
     """Replay each recorded occlusion call through the kernel and the plain
     walk, over the kernel's own table and over the packet table built
@@ -1241,19 +1339,23 @@ def stress_phase(card: str, max_err: dict) -> tuple:
     # no class-3 triangle; the reference peels whenever alpha clip is on);
     # the diffuse tap once (the glass samples no texture), two shades, one
     # refraction fetch; one alpha test per round of each peel
-    (img, diag), launches = count_launches(handles + (clip,), frame, return_diagnostics=True)
+    peel = (frame_mod.CLIP_WORKLIST_KERNEL, frame_mod.CLIP_MERGE_KERNEL)
+    (img, diag), launches = count_launches(handles + (clip,) + peel, frame,
+                                           return_diagnostics=True)
     log(f"stress launches per frame: {launches}")
     expect = {"raster_gbuf": 10, "tap_finish": 1, "shade": 2, "transmission_fetch": 1,
-              "clip_alpha": 2 * cfg.alpha_clip_rounds}
+              "clip_alpha": 2 * cfg.alpha_clip_rounds,
+              "clip_worklist": 2 * (cfg.alpha_clip_rounds - 1),
+              "clip_merge": 2 * (cfg.alpha_clip_rounds - 1)}
     require(launches == expect, f"stress launch counts {launches}, expected {expect}")
 
     # (c) the diagnostics at both ends of the bench's sweep, the unresolved
     # pixels' mask recorded from the peel
     masks = []
-    peel = frame_mod._rasterize_clip_peeled
+    peeled = frame_mod._rasterize_clip_peeled
 
     def recording_peel(*args, **kwargs):
-        out = peel(*args, **kwargs)
+        out = peeled(*args, **kwargs)
         masks.append(out[4])
         return out
 
@@ -1265,7 +1367,7 @@ def stress_phase(card: str, max_err: dict) -> tuple:
             img_p, d = frame(p, return_diagnostics=True)
             diags[tag] = (img_p, d, masks[0] | masks[1])
     finally:
-        frame_mod._rasterize_clip_peeled = peel
+        frame_mod._rasterize_clip_peeled = peeled
     for tag, (_, d, _) in diags.items():
         got = diagnostics_dict(d)
         log(f"stress diagnostics at {tag}: clip_unresolved {got['clip_unresolved']}, "
@@ -1295,16 +1397,23 @@ def stress_phase(card: str, max_err: dict) -> tuple:
     cfg_conv = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
                             alpha_clip_rounds=8, clip_retile_cap_frac=1.0)
     clip.recorder = []
+    for h in peel:
+        h.recorder = Snapshots()
     try:
         img_conv, d_conv = frame(params, cfg_conv, return_diagnostics=True)
         torch.cuda.synchronize()
     finally:
         conv_calls, clip.recorder = clip.recorder, None
+        (wl_conv, mg_conv) = (h.recorder for h in peel)
+        for h in peel:
+            h.recorder = None
     log(f"stress converged (alpha_clip_rounds 8, clip_retile_cap_frac 1.0): diagnostics "
         f"{diagnostics_dict(d_conv)}")
     require(len(conv_calls) == 2 * cfg_conv.alpha_clip_rounds,
             f"stress converged: {len(conv_calls)} alpha tests")
     check_clip_alpha(conv_calls, max_err, "stress converged ")
+    check_clip_peel(wl_conv, mg_conv, "stress converged ")
+    max_err["clip_worklist"] = max_err["clip_merge"] = 0.0
     require(int(d_conv.clip_unresolved) == 0 and not d_conv.overflowed(),
             "stress: the converged peel left pixels unresolved or overflowed")
     rmse_conv = float(np.sqrt(np.mean((linear_to_srgb(img_conv.cpu().numpy()) - golden) ** 2)))
@@ -1353,7 +1462,26 @@ def stress_phase(card: str, max_err: dict) -> tuple:
            "replaces": clip.replaces, "launches": len(conv_calls), "max_abs_err": None,
            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": None, "frame": "stress_conv", "sharded": None}
-    return launches, row
+    # the peel's worklists and merges on the converged frame: the kernels'
+    # time in one profiled frame, the plain versions' over the recorded
+    # rounds (the merges replayed over their recorded state, which they
+    # change: the same work)
+    works = [clip_peel_work(w, m) for w, m in zip(wl_conv, mg_conv)]
+    b_ms, b_by = bound_of(works)
+    k_ms = profiled_kernel_ms(lambda: frame(params, cfg_conv), PEEL_KERNELS)
+    p_ms = sum(cuda_ms(lambda: h.replay(c, False), 3)
+               for h, calls in zip(peel, (wl_conv, mg_conv)) for c in calls)
+    log(f"stress kernels clip_worklist + clip_merge on [{card}]: {k_ms:.4f} ms/frame on the "
+        f"device (profiled), plain {p_ms:.3f} ms/frame, bound {b_ms:.4f} ms "
+        f"by {b_by} ({sum(w[0] for w in works)} bytes), {b_ms / k_ms:.4f} of the bound "
+        f"reached, {len(wl_conv)} rounds per converged frame; bytes per round "
+        f"{[w[0] for w in works]}")
+    peel_row = {"name": "clip_worklist+clip_merge", "route": "cuda",
+                "source": peel[0].source, "replaces": peel[0].replaces,
+                "launches": len(wl_conv) + len(mg_conv), "max_abs_err": None, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "frame": "stress_conv", "sharded": None}
+    return launches, [row, peel_row]
 
 
 # FrameDiagnostics of the reference's 1080p stress frame on its
@@ -2490,8 +2618,9 @@ def sharded_frames_on_rank(mesh, out_dir: str):
     version), at a halo of the band height, and timed; with 2 bands (c)
     the stress frame, on the G-buffer branch and on the visibility branch
     (the last band's kernel-6 calls, padded rows included, against their
-    plain version; the peel's alpha tests on the band's local tile ids,
-    check_clip_alpha), and (d) the ray-traced flagship, kernel 5's band
+    plain version; the peel's alpha tests, worklists and merges on the
+    band's tile ids, check_clip_alpha and check_clip_peel, on every rank),
+    and (d) the ray-traced flagship, kernel 5's band
     calls against the plain walk on every band. -> rank 0's frames,
     diagnostics, launches and times; the other ranks write their parity
     errors to out_dir/rank<r>.json and return None."""
@@ -2529,16 +2658,29 @@ def sharded_frames_on_rank(mesh, out_dir: str):
         s_scene, s_dl, s_flags = build_stress_scene().finish_bundle(device=dev)
         s_params = make_params(cfgs["stress"], bench_rig(0), dev)
         clip = frame_mod.CLIP_ALPHA_KERNEL
+        peel = (frame_mod.CLIP_WORKLIST_KERNEL, frame_mod.CLIP_MERGE_KERNEL)
         clip.recorder = []
+        for h in peel:
+            h.recorder = Snapshots()
         try:
             ldr, diag = frame(cfgs["stress"], s_scene, s_dl, s_flags, s_params,
                               return_diagnostics=True)
             torch.cuda.synchronize()
         finally:
             clip_calls, clip.recorder = clip.recorder, None
+            wl_calls, mg_calls = (h.recorder for h in peel)
+            for h in peel:
+                h.recorder = None
         out["stress"], out["stress_diag"] = ldr.cpu().numpy(), diagnostics_dict(diag)
-        # the peel's alpha test on the band's local tile ids
+        # the peel's alpha test, worklist and merge on the band's tile
+        # ids (t0 = the band's first tile on every rank but rank 0)
         check_clip_alpha(clip_calls, max_err, tag)
+        rounds = 2 * (cfgs["stress"].alpha_clip_rounds - 1)
+        require(len(wl_calls) == rounds and len(mg_calls) == rounds,
+                f"{tag}clip_peel: {len(wl_calls)} worklists and {len(mg_calls)} merges, "
+                f"expected {rounds} each")
+        check_clip_peel(wl_calls, mg_calls, tag)
+        max_err["clip_worklist"] = max_err["clip_merge"] = 0.0
         v_params = make_params(cfgs["stress_vis"], bench_rig(0), dev)
         (ldr, diag), out["vis_launches"] = count_launches(handles, lambda: frame(
             cfgs["stress_vis"], s_scene, s_dl, s_flags, v_params, return_diagnostics=True))
@@ -3443,7 +3585,7 @@ def main() -> int:
     check_parity((raster_gbuf.KERNEL,), big_calls, max_err, "vis materialised bins ")
 
     # ---- 9. the stress frame ----------------------------------------------------
-    stress_rows, clip_row = stress_phase(card, max_err)
+    stress_rows, peel_rows = stress_phase(card, max_err)
 
     # ---- 10. the bench's other scenes --------------------------------------------
     bench_launches, bench_kernels = bench_scenes_phase(card, max_err)
@@ -3475,15 +3617,16 @@ def main() -> int:
         "bvh": bvh})
     for row in kernel_rows:  # the one-rank sharded flagship's calls
         row["sharded"] = sharded[row["name"]]
-    kernel_rows.append(clip_row)  # the flagship runs no peel
+    kernel_rows.extend(peel_rows)  # the flagship runs no peel
 
     # ---- 16. pair-stream compaction; the frontier traversal beside kernel 5 ------
     compaction_phase(card, {"scene": scene, "dl": dl, "flags": flags, "params": params,
                             "lights": lights, "img": img})
     bfs_phase(card, rt_calls["bvh_occlusion"][0], dl.tri_vtx, world_pos)
 
-    for row in kernel_rows:  # the worst over every frame checked
-        row["max_abs_err"] = max_err[row["name"]]
+    for row in kernel_rows:  # the worst over every frame checked (a row of two
+        # kernels, "a+b", takes the worse of the two)
+        row["max_abs_err"] = max(max_err[n] for n in row["name"].split("+"))
     log(json.dumps({"bench_kernels": bench_kernels}))
     log(json.dumps({"stress_launches": stress_rows}))
     log(json.dumps({"bench_launches": bench_launches}))

@@ -17,6 +17,11 @@ out-of-range indices reported through the error word); the clip peel's
 alpha test (csrc/clip_alpha.cu) on the stress scene's kernel-branch
 frame at 256x144, dense and sparse first rounds (every call bit for bit,
 the rows no slot names left alone, one launch per clip_alpha_test span);
+the peel's re-race worklist and merge (csrc/clip_peel.cu) on that frame
+with the benchmark's caps and the default ones and on a glass_dragon
+frame (every call bit for bit, the state and ok at every round and the
+image equal to the plain path's, four launches and at most 25 ops a
+round), and each benchmark cell's host syncs a frame;
 pair-stream
 compaction of the 1080p flagship's binning call (the valid prefix, the
 overflow); the pixel box: a sliver of the glass blob drawn by neither
@@ -29,6 +34,8 @@ conftest.py, which imports it):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The full-size check of the same kernels is chip_smoke.py."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -891,9 +898,10 @@ def test_shade_sky_spot_and_mixed_clusters_match_plain(captured):
 # the bench's other scenes (chip_smoke.py phase 10 at full size)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=1)
 def _smoke():
     """The repo's chip_smoke.py, which defines the bench scenes, loaded as
-    a module."""
+    a module (once)."""
     import importlib.util
     import os
 
@@ -1230,6 +1238,279 @@ def test_clip_alpha_test_spans_count_one_launch(peel_captured):
     for s in spans:
         assert s.counters["launches"] == 1 and s.kernels == {"clip_alpha": 1}
         assert s.counters["ops"] <= 10
+
+
+# ---------------------------------------------------------------------------
+# the clip peel's re-race rounds (csrc/clip_peel.cu: the worklist and the
+# merge around kernel 1) on the stress frame and the benchmark cells' frames
+# ---------------------------------------------------------------------------
+
+# each benchmark cell's host syncs a frame (PERF.md, Where the time goes)
+CELL_SYNCS = {"foliage.orbit": 7, "dragon.orbit": 7, "dragon.rt_orbit": 9}
+
+
+def _snapshot(x):
+    return _smoke().snapshot(x)
+
+
+def _words(t):
+    return _smoke().words(t)
+
+
+def _peel_handles():
+    from transmission_renderer_tpu_torch.render.frame import (
+        CLIP_MERGE_KERNEL,
+        CLIP_WORKLIST_KERNEL,
+    )
+
+    return CLIP_WORKLIST_KERNEL, CLIP_MERGE_KERNEL
+
+
+def _record_peel(frame, plain: bool):
+    """``frame()`` on the card with the peel's worklist and merge calls
+    recorded (``plain``: their plain versions run in place of the
+    kernels) -> (image, worklist calls, merge calls)."""
+    handles = _peel_handles()
+    kept = [h.cuda for h in handles]
+    for h in handles:
+        h.recorder = _smoke().Snapshots()
+        if plain:
+            h.cuda = h.plain
+    try:
+        img = frame()
+        torch.cuda.synchronize()
+    finally:
+        calls = [h.recorder for h in handles]
+        for h, cuda in zip(handles, kept):
+            h.recorder, h.cuda = None, cuda
+    return img, calls[0], calls[1]
+
+
+def _glass_dragon_scene():
+    """The glass dragon cells' scene from the port's builders: the stress
+    scene (the Sponza-foliage analogue) and, in front of it as the last
+    instance, the flagship's glass blob (129,600 triangles)."""
+    from transmission_renderer_tpu_torch.models.procedural import (
+        _displaced_sphere,
+        build_stress_scene,
+    )
+    from transmission_renderer_tpu_torch.config import BUCKET_TRANSMISSION
+
+    b = build_stress_scene()
+    glass = b.add_material(
+        diffuse_factor=(1.0, 1.0, 1.0, 1.0), roughness_factor=0.25, metallic_factor=0.0,
+        transmission_factor=1.0, thickness_factor=0.6, attenuation_distance=1.0,
+        attenuation_colour=(0.9, 0.4, 0.25), index_of_refraction=1.5)
+    blob = b.add_primitive(*_displaced_sphere(180, 360, amp=0.25), bucket=BUCKET_TRANSMISSION)
+    b.add_instance(blob, glass, translation=(0.0, 1.6, -2.1), scale=0.9)
+    return b
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_frame(cell: str):
+    """A benchmark cell's frame at its first camera, built from the port's
+    own scene builders and RenderConfig: the foliage cell's stress scene
+    or the dragon cells' glass dragon at 1920x1080, the peel run to
+    convergence (8 rounds, every failing tile re-raced), ray-traced
+    shadows in the rt cell -> render() -> (image, diagnostics)."""
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+
+    rt = cell == "dragon.rt_orbit"
+    b = build_stress_scene() if cell == "foliage.orbit" else _glass_dragon_scene()
+    dev = torch.device("cuda")
+    scene, dl, flags = b.finish_bundle(device=dev)
+    bvh = b.build_rt_bvh(device=dev) if rt else None
+    cfg = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
+                       alpha_clip_rounds=8, clip_retile_cap_frac=1.0, ray_traced_shadows=rt)
+    rig = _smoke().flagship_rig()
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device=dev)
+    lights = pack_lights([point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
+                          point_light([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0)], device=dev)
+    return lambda: render_frame(scene, dl, params, lights, cfg, flags=flags, bvh=bvh,
+                                return_diagnostics=True)
+
+
+def _stress_frame(cfg: RenderConfig):
+    from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
+    from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
+    from transmission_renderer_tpu_torch.render.frame import make_frame_params, render_frame
+    from transmission_renderer_tpu_torch.scene.camera import CameraRig
+
+    dev = torch.device("cuda")
+    scene, dl, flags = build_stress_scene(grid=3).finish_bundle(device=dev)
+    rig = CameraRig()
+    rig.camera.position = np.array([0.0, 3.0, 2.5], np.float32)
+    rig.camera.pitch = -0.5
+    params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
+                               rig.sun_dir(), device=dev)
+    lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device=dev)
+    return lambda: render_frame(scene, dl, params, lights, cfg, flags=flags)
+
+
+PEEL_FRAMES = {
+    # the cells' peel (8 rounds, every failing tile re-raced), the first
+    # round sparse as at 1080p
+    "stress-cells": lambda: _stress_frame(RenderConfig(
+        width=256, height=144, use_pallas_raster=True, sparse_raster_tile_floor=1,
+        alpha_clip_rounds=8, clip_retile_cap_frac=1.0)),
+    # the default 4 rounds and shrinking caps (0.30, 0.08, 0.02), dense
+    # first round
+    "stress-default": lambda: _stress_frame(RenderConfig(
+        width=256, height=144, use_pallas_raster=True)),
+    "glass_dragon": lambda: _dragon_cell_frame(),
+}
+
+
+def _dragon_cell_frame():
+    render = _cell_frame("dragon.orbit")
+    return lambda: render()[0]
+
+
+@pytest.fixture(scope="module", params=sorted(PEEL_FRAMES))
+def peel_rounds(request):
+    """One frame's peel rounds recorded twice on the card, through the
+    kernels and through the plain versions -> {"cuda": (image, worklist
+    calls, merge calls), "plain": the same}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    frame = PEEL_FRAMES[request.param]()
+    return {"cuda": _record_peel(frame, False), "plain": _record_peel(frame, True)}
+
+
+def test_clip_worklist_matches_plain(peel_rounds):
+    """Every recorded worklist call through the kernel and the plain
+    version: ids, raced tile ids, demand, seed depths and peel bounds
+    bit-equal; the frame's rounds see failing tiles, empty slots and
+    (somewhere) a demand past the round's cap or none."""
+    h, _ = _peel_handles()
+    _, calls, _ = peel_rounds["cuda"]
+    assert calls
+    live = empty = 0
+    for call in calls:
+        got = h.replay(_snapshot(call), True)
+        ref = h.replay(_snapshot(call), False)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and torch.equal(_words(g), _words(r))
+        n_tiles = call[0][0].shape[1]
+        live += int((got[0] < n_tiles).sum())
+        empty += int((got[0] >= n_tiles).sum())
+    assert live > 0 and empty > 0
+
+
+def test_clip_merge_matches_plain(peel_rounds):
+    """Every recorded merge call through the kernel and the plain version
+    over copies of its state and raced channels: both bit-equal after."""
+    _, h = _peel_handles()
+    _, _, calls = peel_rounds["cuda"]
+    assert calls
+    for call in calls:
+        got, ref = _snapshot(call), _snapshot(call)
+        h.replay(got, True)
+        h.replay(ref, False)
+        (gs, _, _, graced), (rs, _, _, rraced) = got[0], ref[0]
+        assert torch.equal(_words(gs), _words(rs))
+        for n in graced:
+            assert torch.equal(_words(graced[n]), _words(rraced[n])), n
+
+
+def test_clip_peel_rounds_equal_the_plain_path(peel_rounds):
+    """The frame through the kernels and through the plain versions: the
+    peel's state and ok at every round (each after the round before) and
+    the merged channels bit-equal, and the same image bit for bit."""
+    (img, wl, mg), (img_p, wl_p, mg_p) = peel_rounds["cuda"], peel_rounds["plain"]
+    assert len(wl) == len(wl_p) and len(mg) == len(mg_p) == len(wl)
+    for (a, _), (b, _) in zip(wl, wl_p):
+        assert torch.equal(_words(a[0]), _words(b[0])) and torch.equal(a[1], b[1])
+    for (a, _), (b, _) in zip(mg, mg_p):
+        assert torch.equal(_words(a[0]), _words(b[0])) and torch.equal(a[2], b[2])
+    assert torch.equal(img, img_p)
+
+
+@pytest.mark.parametrize("case", ["overflow", "band-overflow", "band-empty-slots",
+                                  "every-tile"])
+def test_clip_peel_kernels_on_a_synthetic_state(case):
+    """tests/test_torch_clip_peel.py's synthetic rounds (a cap below the
+    demand, a band's offset, empty slots, NaN and denormal int patterns)
+    through both kernels and their plain versions on the card: every
+    output and the merged state and channels bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from test_torch_clip_peel import synthetic_round
+    from transmission_renderer_tpu_torch.render.frame import _peel_channels
+
+    wl, mg = _peel_handles()
+    tiles, ok_p, init_tiles, pad_tile, t0, cap, raced = _snapshot(synthetic_round(case, True))
+    dev = torch.device("cuda")
+    state = torch.stack([tiles[n].view(torch.float32) for n in _peel_channels(tiles)]).to(dev)
+    args = (state, ok_p.to(dev), init_tiles.to(dev), pad_tile.to(dev), t0, cap)
+    got, ref = wl.cuda(*args), wl.plain(*args)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(_words(g), _words(r))
+    raced = {n: a.to(dev) for n, a in raced.items()}
+    merged = [(state.clone(), _snapshot(raced)) for _ in range(2)]
+    for fn, (s, r) in zip((mg.cuda, mg.plain), merged):
+        fn(s, args[1], got[0], r)
+    torch.cuda.synchronize()
+    (gs, gr), (rs, rr) = merged
+    assert torch.equal(_words(gs), _words(rs)) and not torch.equal(_words(gs), _words(state))
+    for n in gr:
+        assert torch.equal(_words(gr[n]), _words(rr[n])), n
+
+
+def _round_spans_check(spans):
+    """Each clip_round_k span: one launch each of kernel 1, the alpha test,
+    the worklist and the merge, at most 25 dispatched ops, no sync."""
+    rounds = [s for s in spans if s.name.startswith("clip_round_")]
+    assert rounds
+    for s in rounds:
+        assert s.kernels == {"raster_gbuf": 1, "clip_alpha": 1, "clip_worklist": 1,
+                             "clip_merge": 1}, (s.name, s.kernels)
+        assert s.counters["ops"] <= 25, (s.name, s.counters)
+        assert s.counters["syncs"] == 0, (s.name, s.counters)
+    return rounds
+
+
+@pytest.mark.parametrize("frame", ["stress-cells", "stress-default"])
+def test_clip_round_spans_count_four_launches(frame):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.utils.profiling import FrameTracer, tracing
+
+    render = PEEL_FRAMES[frame]()
+    render()
+    with tracing(FrameTracer("cuda", counting=True)) as tracer:
+        render()
+        torch.cuda.synchronize()
+    _round_spans_check(tracer.read())
+
+
+@pytest.mark.parametrize("cell", sorted(CELL_SYNCS))
+def test_cell_frame_syncs_and_round_spans(cell):
+    """A cell's frame in counting mode: its host syncs as before the
+    peel's rounds moved onto the card, and every round span as on the
+    stress frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from transmission_renderer_tpu_torch.utils.profiling import (
+        FRAME_SPAN,
+        FrameTracer,
+        tracing,
+    )
+
+    render = _cell_frame(cell)
+    render()
+    torch.cuda.synchronize()
+    with tracing(FrameTracer("cuda", counting=True)) as tracer:
+        render()
+        torch.cuda.synchronize()
+    spans = tracer.read()
+    (frame,) = [s for s in spans if s.name == FRAME_SPAN]
+    assert frame.counters["syncs"] == CELL_SYNCS[cell], frame.counters
+    rounds = _round_spans_check(spans)
+    assert len(rounds) == 2 * 7  # both peels run 8 rounds: 7 re-races each
 
 
 # ---------------------------------------------------------------------------

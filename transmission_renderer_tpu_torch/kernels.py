@@ -39,7 +39,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("raster_gbuf.cu", "tap_finish.cu", "shade.cu", "transmission_fetch.cu",
-           "bvh_occlusion.cu", "raster_vis.cu", "bvh_closest.cu", "clip_alpha.cu")
+           "bvh_occlusion.cu", "raster_vis.cu", "bvh_closest.cu", "clip_alpha.cu",
+           "clip_peel.cu")
 HEADERS = ("common.cuh", "work_list.cuh", "atlas_tap.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,7 +17,10 @@ reference:
   raster (kernel 1, partial last tiles at any width), each alpha-clip
   class depth-peeled after its pass (frame.py:1151-1158, 1439-1456; each
   round's alpha test one launch of csrc/clip_alpha.cu, CLIP_ALPHA_KERNEL,
-  whose plain version is _clip_alpha_ok_tiles scattered by tile id), the
+  whose plain version is _clip_alpha_ok_tiles scattered by tile id; each
+  re-race round's worklist and merge over the stacked state one launch
+  each of csrc/clip_peel.cu, CLIP_WORKLIST_KERNEL and CLIP_MERGE_KERNEL,
+  whose plain versions are its gather, where and index-put), the
   dense or block-sparse opaque shade (frame.py:1278-1322), and the fused
   sparse transmission path (frame.py:1374-1416, 1486-1528) or, with alpha
   clip, half-res refraction, no tile cap or a width that is not a
@@ -90,6 +93,7 @@ from transmission_renderer_tpu_torch.ops.raster import (
     untile_image,
 )
 from transmission_renderer_tpu_torch.ops.raster_gbuf import (
+    INT_CHANNELS,
     TILE_H,
     TILE_W,
     active_channels,
@@ -653,6 +657,145 @@ def _clip_alpha_test(scene: Scene, ch: dict, ids: torch.Tensor, n_tiles: int,
     return CLIP_ALPHA_KERNEL(ok_p.is_cuda, scene, ch, ids, n_tiles, ok_p)
 
 
+# the peel's stacked state [C, n_tiles, 8, 128] float32 holds kernel 1's
+# channels in its output order: tri and material (int32 bits), then the
+# float channels, depth first (csrc/clip_peel.cu reads tri at plane 0 and
+# depth at plane PEEL_DEPTH)
+PEEL_DEPTH = len(INT_CHANNELS)
+
+
+def _peel_channels(ch: dict) -> tuple:
+    """The state's channel names for kernel 1's channel dict ``ch``: the
+    one place that lays the state out."""
+    names = INT_CHANNELS + tuple(n for n in ch if n not in INT_CHANNELS)
+    if names[PEEL_DEPTH] != "depth":
+        raise ValueError(f"the peel state's plane {PEEL_DEPTH} is {names[PEEL_DEPTH]!r}, "
+                         "not depth")
+    return names
+
+
+def _clip_worklist_plain(state: torch.Tensor, ok_p: torch.Tensor, init_tiles: torch.Tensor,
+                         pad_tile: torch.Tensor, t0: int, cap: int) -> tuple:
+    """A re-race round's worklist in plain PyTorch: the tiles holding a
+    failing winner (tri >= 0 where ``ok_p`` is false), compacted in
+    ascending order into ``cap`` slots (the rest wait for a later round;
+    an empty slot's id is n_tiles and it races ``pad_tile``), and kernel
+    1's inputs gathered per slot. -> (ids, race ids = the raced local
+    tiles + t0, demand = the failing tiles [] int32, seed depths, peel
+    bounds = the state's depth where the winner failed, +inf elsewhere)."""
+    n_tiles = state.shape[1]
+    dev = state.device
+    failed = (state[0].view(torch.int32) >= 0) & ~ok_p[:n_tiles]
+    ft = failed.reshape(n_tiles, -1).any(dim=1)
+    pos = torch.cumsum(ft.to(torch.int32), 0) - 1
+    tgt = torch.where(ft & (pos < cap), pos, cap).long()
+    ids = torch.full((cap + 1,), n_tiles, dtype=torch.int32, device=dev)
+    ids[tgt] = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    ids = ids[:cap]
+    safe = torch.where(ids >= n_tiles, pad_tile, ids).long()
+    maxd = torch.where(failed[safe], state[PEEL_DEPTH][safe], torch.inf)
+    return (ids, (safe + t0).to(torch.int32), ft.sum(dtype=torch.int32), init_tiles[safe],
+            maxd)
+
+
+def _clip_worklist_cuda(state: torch.Tensor, ok_p: torch.Tensor, init_tiles: torch.Tensor,
+                        pad_tile: torch.Tensor, t0: int, cap: int) -> tuple:
+    """Launch csrc/clip_peel.cu's worklist (flag, compact, gather): what
+    _clip_worklist_plain computes, with no host sync."""
+    dev = state.device
+    n_tiles = state.shape[1]
+    tile = (n_tiles, TILE_H, TILE_W)
+    kernels.check(state, "peel state", torch.float32, (state.shape[0],) + tile, device=dev)
+    kernels.check(ok_p, "ok", torch.bool, (n_tiles + 1, TILE_H, TILE_W), device=dev)
+    kernels.check(init_tiles, "init tiles", torch.float32, tile, device=dev)
+    kernels.check(pad_tile, "pad tile", torch.int32, (), device=dev)
+    # ids, race ids, the flags' scratch, the demand
+    ints = torch.empty(2 * cap + n_tiles + 1, dtype=torch.int32, device=dev)
+    depths = torch.empty((2, cap, TILE_H, TILE_W), dtype=torch.float32, device=dev)
+    ids, race_ids, flags = ints[:cap], ints[cap : 2 * cap], ints[2 * cap : -1]
+    demand = ints[-1]
+    p, i = kernels.VOIDP, kernels.INT
+    fn = kernels.entry("trt_clip_worklist", [p, p, p, p, p, i, i, i, p, p, p, p, p, p])
+    kernels.launch(
+        CLIP_WORKLIST_KERNEL, fn, kernels.ptr(state[0]), kernels.ptr(state[PEEL_DEPTH]),
+        kernels.ptr(ok_p), kernels.ptr(init_tiles), kernels.ptr(pad_tile), n_tiles, t0, cap,
+        kernels.ptr(flags), kernels.ptr(ids), kernels.ptr(race_ids), kernels.ptr(demand),
+        kernels.ptr(depths[0]), kernels.ptr(depths[1]))
+    return ids, race_ids, demand, depths[0], depths[1]
+
+
+CLIP_WORKLIST_KERNEL = kernels.KernelHandle(
+    "clip_worklist", "transmission_renderer_tpu_torch/csrc/clip_peel.cu",
+    "none: the peel's worklist is XLA code, "
+    "transmission_renderer_tpu/render/frame.py:835-854 (_rasterize_clip_peeled)",
+    cuda=_clip_worklist_cuda, plain=_clip_worklist_plain,
+)
+
+
+def _clip_worklist(state: torch.Tensor, ok_p: torch.Tensor, init_tiles: torch.Tensor,
+                   pad_tile: torch.Tensor, t0: int, cap: int) -> tuple:
+    """A re-race round's worklist from the peel's state and ok: the kernel
+    for CUDA tensors, _clip_worklist_plain otherwise."""
+    return CLIP_WORKLIST_KERNEL(state.is_cuda, state, ok_p, init_tiles, pad_tile, t0, cap)
+
+
+def _clip_merge_plain(state: torch.Tensor, ok_p: torch.Tensor, ids: torch.Tensor,
+                      raced: dict) -> None:
+    """A round's merge in plain PyTorch, as 32-bit words: at each slot
+    whose id is below n_tiles, kernel 1's ``raced`` channels ([slots, 8,
+    128] each) replace the state where the winner failed, and the state's
+    winner replaces them elsewhere, so both hold the merged winner. An
+    empty slot touches nothing."""
+    n_tiles = state.shape[1]
+    words = state.view(torch.int32)
+    live = ids < n_tiles
+    rows = ids[live].long()
+    failed = (words[0, rows] >= 0) & ~ok_p[rows]
+    names = _peel_channels(raced)
+    new = torch.stack([raced[n].view(torch.int32)[live] for n in names])
+    merged = torch.where(failed, new, words[:, rows])
+    words[:, rows] = merged
+    for n, m in zip(names, merged):
+        raced[n].view(torch.int32)[live] = m
+
+
+def _clip_merge_cuda(state: torch.Tensor, ok_p: torch.Tensor, ids: torch.Tensor,
+                     raced: dict) -> None:
+    """Launch csrc/clip_peel.cu's merge: what _clip_merge_plain does."""
+    dev = state.device
+    n_tiles, k = state.shape[1], ids.shape[0]
+    names = _peel_channels(raced)
+    kernels.check(state, "peel state", torch.float32, (len(names), n_tiles, TILE_H, TILE_W),
+                  device=dev)
+    kernels.check(ok_p, "ok", torch.bool, (n_tiles + 1, TILE_H, TILE_W), device=dev)
+    kernels.check(ids, "ids", torch.int32, (k,), device=dev)
+    for n in names:
+        kernels.check(raced[n], n, torch.int32 if n in INT_CHANNELS else torch.float32,
+                      (k, TILE_H, TILE_W), device=dev, align=16)
+    p, i = kernels.VOIDP, kernels.INT
+    fn = kernels.entry("trt_clip_merge", [p, i, i, p, p, i, ctypes.POINTER(ctypes.c_void_p)])
+    kernels.launch(
+        CLIP_MERGE_KERNEL, fn, kernels.ptr(state), len(names), n_tiles, kernels.ptr(ok_p),
+        kernels.ptr(ids), k,
+        (ctypes.c_void_p * len(names))(*(raced[n].data_ptr() for n in names)))
+
+
+CLIP_MERGE_KERNEL = kernels.KernelHandle(
+    "clip_merge", "transmission_renderer_tpu_torch/csrc/clip_peel.cu",
+    "none: the peel's merge is XLA code, "
+    "transmission_renderer_tpu/render/frame.py:861-866 (_rasterize_clip_peeled)",
+    cuda=_clip_merge_cuda, plain=_clip_merge_plain,
+)
+
+
+def _clip_merge(state: torch.Tensor, ok_p: torch.Tensor, ids: torch.Tensor,
+                raced: dict) -> None:
+    """Merge a round's raced channels into the peel's state and back into
+    ``raced`` in place: the kernel for CUDA tensors, _clip_merge_plain
+    otherwise."""
+    CLIP_MERGE_KERNEL(state.is_cuda, state, ok_p, ids, raced)
+
+
 def vis_alpha(scene: Scene, dl: DrawList, uvs: torch.Tensor) -> VisAlpha:
     """The visibility raster's alpha test inputs (the reference's
     _make_alpha_fn, frame.py:886-954) from the scene, the draw list and
@@ -758,9 +901,11 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     A tile's winner depends on its own records only, so the band's
     result is the whole grid's on its tiles.
 
-    The channel state is a dict of [n_tiles + 1, 8, 128] tensors (row
-    n_tiles takes the empty slots' writes) updated by indexed assignment:
-    pure data movement, so every bit of a channel survives the rounds."""
+    The channel state is one stacked [C, n_tiles, 8, 128] float32 buffer
+    (tri and material as int32 bits, then kernel 1's float channels). A
+    round is its worklist (_clip_worklist), kernel 1, the merge
+    (_clip_merge) and the alpha test, with no host sync: pure data
+    movement, so every bit of a channel survives the rounds."""
     tiles_x = -(-w // TILE_W)
     t0, tiles_y, n_tiles_global = band or (0, -(-h // TILE_H), None)
     n_tiles = tiles_x * tiles_y  # the tiles peeled; state rows are local
@@ -795,36 +940,26 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     peel_base = all_ids.long() * nc + pass_class
     peel_pad_tile = torch.argmin(bins.tile_start[peel_base + 1]
                                  - bins.tile_start[peel_base]).to(torch.int32)
-    state = {n: torch.cat([a, torch.zeros_like(a[:1])]) for n, a in ch.items()}
+    names = _peel_channels(ch)
+    state = torch.stack([ch[n].view(torch.float32) for n in names])
     round_demand, round_caps = [], []
     for rnd in range(1, max(config.alpha_clip_rounds, 1)):
         cap = caps[min(rnd - 1, len(caps) - 1)]
         round_caps.append(cap)
         with pass_scope(f"clip_round_{rnd}"):
-            failed = (state["tri"][:n_tiles] >= 0) & ~ok_p[:n_tiles]
-            ft = failed.reshape(n_tiles, -1).any(dim=1)
-            round_demand.append(ft.to(torch.int32).sum())
-            pos = torch.cumsum(ft.to(torch.int32), 0) - 1
-            tgt = torch.where(ft & (pos < cap), pos, cap).long()
-            ids = torch.full((cap + 1,), n_tiles, dtype=torch.int32, device=dev)
-            ids[tgt] = local_ids
-            ids = ids[:cap]
-            # empty slots aim at the class's emptiest tile, not the last
-            # one (whose record run every empty slot would re-walk)
-            safe_ids = torch.where(ids >= n_tiles, peel_pad_tile, ids)
-            safe = safe_ids.long()
-            prev = {n: a[safe] for n, a in state.items()}
-            failed_sel = failed[safe]
-            maxd = torch.where(failed_sel, prev["depth"], torch.inf).contiguous()
+            # empty slots race the class's emptiest tile, not the last one
+            # (whose record run every empty slot would re-walk)
+            ids, race_ids, demand, seed, maxd = _clip_worklist(
+                state, ok_p, init_tiles, peel_pad_tile, t0, cap)
+            round_demand.append(demand)
             new = rasterize_gbuffer_tiles(
-                payload, (safe_ids + t0).contiguous(), bins.tile_start, big_count, w, h,
-                init_depth_tiles=init_tiles[safe].contiguous(), max_depth_tiles=maxd,
+                payload, race_ids, bins.tile_start, big_count, w, h,
+                init_depth_tiles=seed, max_depth_tiles=maxd,
                 pass_class=pass_class, pos_derivs=pos_derivs, n_tiles_global=n_tiles_global)
-            sub = {n: torch.where(failed_sel, new[n], prev[n]) for n in state}
-            for n, a in state.items():
-                a[ids.long()] = sub[n]
-            _clip_alpha_test(scene, sub, ids, n_tiles, ok_p)
-    ch = {n: a[:n_tiles] for n, a in state.items()}
+            _clip_merge(state, ok_p, ids, new)
+            _clip_alpha_test(scene, new, ids, n_tiles, ok_p)
+    ch = {n: state[c].view(torch.int32) if n in INT_CHANNELS else state[c]
+          for c, n in enumerate(names)}
     failed = (ch["tri"] >= 0) & ~ok_p[:n_tiles]
     unresolved = failed.to(torch.int32).sum()
     ch["tri"] = torch.where(failed, -1, ch["tri"])

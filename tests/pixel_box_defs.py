@@ -1,24 +1,10 @@
 """Shared by the tests of the rasters' pixel box: the widened screen box
-computed in numpy, and the sliver of chip_smoke.py (SLIVER, SLIVER_PIXEL),
+computed in numpy, and the sliver of card_defs.py (SLIVER, SLIVER_PIXEL),
 whose float32 edge functions read "inside" at a pixel past that box."""
-
-import importlib.util
-import os
 
 import numpy as np
 
-
-def _chip_smoke():
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                        "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
-
-
-_SMOKE = _chip_smoke()
-SLIVER, SLIVER_PIXEL = _SMOKE.SLIVER, _SMOKE.SLIVER_PIXEL
+from card_defs import SLIVER, SLIVER_PIXEL  # noqa: F401
 
 
 def pixel_box(clip, tris, width, height) -> np.ndarray:

@@ -5,10 +5,11 @@ package's own frames of bench.py's scenes at the bench's config for each
 (bench.py:275-293), camera (bench.py:86-90, the CameraRig's default sun)
 and lights (bench.py:93-99; bindless_lights(48) for bindless), rendered
 on the CPU, where the reference takes its visibility-buffer branch
-(materialised bins keeping 2048 triangles a tile). chip_smoke.py phase 10
-holds the port's kernel-branch frames to them, outside the tiles whose
-bins that branch overflowed (BENCH_HD[name]["dropped_tiles"]), and pins
-the reference's FrameDiagnostics of each golden frame.
+(materialised bins keeping 2048 triangles a tile).
+tests/test_torch_card_hd.py holds the port's kernel-branch frames to
+them on the card, outside the tiles whose bins that branch overflowed
+(card_defs.BENCH_HD[name]["dropped_tiles"]), and card_defs.py pins the
+reference's FrameDiagnostics of each golden frame.
 
 The `slow` test re-renders each golden with the JAX package (10-25 s
 and 4-7 GB a scene on 8 CPU cores) and holds it to the stored PNG, the pinned
@@ -18,12 +19,11 @@ bins:
     python -m pytest tests/test_torch_bench_hd.py -m slow
 
 Regenerating a golden (writes the PNG, prints the diagnostics and the
-dropped tiles to pin in chip_smoke.py):
+dropped tiles to pin in card_defs.py):
 
     python tests/test_torch_bench_hd.py helmet smooth attenuation bindless
 """
 
-import importlib.util
 import os
 import sys
 import time
@@ -35,15 +35,6 @@ import pytest
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(HERE, "goldens")
 NAMES = ("helmet", "smooth", "attenuation", "bindless")
-
-
-def smoke_module():
-    """The repo's chip_smoke.py, loaded as a module (it pins BENCH_HD)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, os.pardir, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
 
 
 def reference_inputs(name: str):
@@ -145,10 +136,12 @@ def dropped_tiles(cfg, scene, dl, params) -> tuple:
 @pytest.mark.parametrize("name", NAMES)
 def test_bench_hd_golden_is_the_references(name):
     """tests/goldens/<name>_hd.png is the reference's own 1080p frame, with
-    the diagnostics and dropped tiles chip_smoke.py pins for it."""
+    the diagnostics and dropped tiles card_defs.py pins for it."""
     from transmission_renderer_tpu_torch.utils.png import read_png
 
-    pinned = smoke_module().BENCH_HD[name]
+    from card_defs import BENCH_HD
+
+    pinned = BENCH_HD[name]
     golden = read_png(os.path.join(GOLDEN_DIR, f"{name}_hd.png"))[..., :3] / 255.0
     got, diag = render_bench_hd_golden(name)
     rmse = float(np.sqrt(np.mean((got - golden) ** 2)))

@@ -263,8 +263,8 @@ def test_quaternion_helpers_match_reference():
 
 
 def test_multi_glb_transmission_tiles_are_the_references():
-    """chip_smoke.py phase 11(e) renders tests/assets/multi.glb through the
-    CLI at its defaults (1080p, camera (0, 2.2, 1.5) pitch -0.25), where
+    """tests/test_torch_card_hd.py renders tests/assets/multi.glb through the
+    CLI at its defaults on the card (1080p, camera (0, 2.2, 1.5) pitch -0.25), where
     its glass quad covers more 8x128 tiles than the default sparse
     transmissive raster holds (transmission_tile_cap_frac 0.25 of 2025:
     507), so --check-nan reports that overflow. The count it pins,
@@ -274,7 +274,7 @@ def test_multi_glb_transmission_tiles_are_the_references():
     bin_triangles."""
     import jax
 
-    from test_torch_bench_hd import smoke_module
+    from card_defs import MULTI_GLB_TRANSMISSION_TILES
     from transmission_renderer_tpu.config import (
         BUCKET_ALPHA_CLIP, BUCKET_OPAQUE, BUCKET_TRANSMISSION, BUCKET_TRANSMISSION_ALPHA_CLIP)
     from transmission_renderer_tpu.ops.cull import bucket_triangle_masks, cull_instances
@@ -323,5 +323,5 @@ def test_multi_glb_transmission_tiles_are_the_references():
     assert flags.has_alpha_clip and flags.has_transmission
     tiles = int(class1_tiles(scene, dl, params))
     cap = int(np.ceil(cfg.tiles_x * cfg.tiles_y * cfg.transmission_tile_cap_frac))
-    assert (tiles, cap) == (smoke_module().MULTI_GLB_TRANSMISSION_TILES, 507)
+    assert (tiles, cap) == (MULTI_GLB_TRANSMISSION_TILES, 507)
     assert tiles > cap

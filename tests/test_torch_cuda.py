@@ -33,7 +33,7 @@ Run on a machine with the card (which has no JAX, so skip the suite's
 conftest.py, which imports it):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The full-size check of the same kernels is chip_smoke.py."""
+The same kernels on the 1920x1080 frames: tests/test_torch_card_hd.py."""
 
 import functools
 
@@ -41,6 +41,8 @@ import numpy as np
 import pytest
 import torch
 
+import card_defs
+from card_defs import snapshot, words
 from transmission_renderer_tpu_torch.config import RenderConfig
 from transmission_renderer_tpu_torch.pbr.lights import spot_light
 
@@ -152,7 +154,7 @@ def test_frame_launches_every_kernel(captured):
                                   "transmission_fetch", "bvh_occlusion"])
 def test_kernel_matches_plain(captured, name):
     """Each recorded call through the kernel and the plain version, with
-    chip_smoke.py's tolerances: the raster's channels equal bit for bit
+    tests/test_torch_card_hd.py's tolerances: the raster's channels equal bit for bit
     (tri, material and every float plane); tap and fetch 1e-6; shade 1e-5 on
     all but 0.05% of the pixels (with the shadow factors in the -rt
     frames, upsampled in the -rt-half ones); the occlusion hit set exact."""
@@ -332,15 +334,13 @@ def _gbuf_scene(dev, seed=3, n_tris=700, w=256, h=64):
 
 
 def test_sliver_draws_no_pixel_on_the_card():
-    """Kernels 1 and 6 leave the glass blob's sliver (chip_smoke.SLIVER)
+    """Kernels 1 and 6 leave the glass blob's sliver (card_defs.SLIVER)
     undrawn at 1920x1080, where its float32 edge functions read "inside"
     past its pixel box; with the record's box widened to the screen,
-    kernel 1 draws the witness pixel (chip_smoke.py::sliver_check)."""
+    kernel 1 draws the witness pixel (card_defs.sliver_check)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
-    import chip_smoke
-
-    chip_smoke.sliver_check(torch.device("cuda"))
+    card_defs.sliver_check(torch.device("cuda"))
 
 
 @pytest.mark.parametrize("case", ["long-runs", "seeded", "peel"])
@@ -869,7 +869,7 @@ def test_shade_sky_spot_and_mixed_clusters_match_plain(captured):
     """Kernel 3 on a frame's opaque call with sky pixels (which only write
     zeros), a spot light that valid pixels evaluate, and warps whose valid
     pixels span several clusters beside warps on one cluster: within the
-    shade tolerance of chip_smoke.py (1e-5 on all but 0.05% of the
+    shade tolerance (1e-5 on all but 0.05% of the
     pixels), and exactly 0 on the sky."""
     from transmission_renderer_tpu_torch.render import shade_kernel
 
@@ -895,28 +895,13 @@ def test_shade_sky_spot_and_mixed_clusters_match_plain(captured):
 
 
 # ---------------------------------------------------------------------------
-# the bench's other scenes (chip_smoke.py phase 10 at full size)
+# the bench's other scenes (tests/test_torch_card_hd.py at full size)
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=1)
-def _smoke():
-    """The repo's chip_smoke.py, which defines the bench scenes, loaded as
-    a module (once)."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
-                        "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
-
 
 @pytest.fixture(scope="module", params=["helmet", "smooth", "attenuation", "bindless"])
 def bench_captured(request):
     """One 256x144 kernel-branch frame of a bench scene on the card, at the
-    bench's size, block caps, camera and lights (chip_smoke.py::bench_scene;
+    bench's size, block caps, camera and lights (card_defs.bench_scene;
     a cap may overflow at this size, which drops blocks but no kernel
     call), every kernel call recorded -> (name, image, {kernel: (calls,
     launches)}, the launches the frame must make)."""
@@ -926,13 +911,12 @@ def bench_captured(request):
 
     from transmission_renderer_tpu_torch.render.frame import render_frame
 
-    smoke = _smoke()
     dev = torch.device("cuda")
     name = request.param
-    scene, dl, flags, cfg, _, lights = smoke.bench_scene(name, dev)
+    scene, dl, flags, cfg, _, lights = card_defs.bench_scene(name, dev)
     cfg = dataclasses.replace(cfg, width=256, height=144, sparse_raster_tile_floor=1)
-    params = smoke.make_params(cfg, smoke.bench_rig(0), dev)
-    expect = dict(smoke.expected_launches(scene, flags), bvh_occlusion=0)
+    params = card_defs.make_params(cfg, card_defs.bench_rig(0), dev)
+    expect = dict(card_defs.expected_launches(scene, flags), bvh_occlusion=0)
     handles = _handles()
     for h in handles:
         h.recorder = []
@@ -1249,14 +1233,6 @@ def test_clip_alpha_test_spans_count_one_launch(peel_captured):
 CELL_SYNCS = {"foliage.orbit": 7, "dragon.orbit": 7, "dragon.rt_orbit": 9}
 
 
-def _snapshot(x):
-    return _smoke().snapshot(x)
-
-
-def _words(t):
-    return _smoke().words(t)
-
-
 def _peel_handles():
     from transmission_renderer_tpu_torch.render.frame import (
         CLIP_MERGE_KERNEL,
@@ -1273,7 +1249,7 @@ def _record_peel(frame, plain: bool):
     handles = _peel_handles()
     kept = [h.cuda for h in handles]
     for h in handles:
-        h.recorder = _smoke().Snapshots()
+        h.recorder = card_defs.Snapshots()
         if plain:
             h.cuda = h.plain
     try:
@@ -1324,7 +1300,7 @@ def _cell_frame(cell: str):
     bvh = b.build_rt_bvh(device=dev) if rt else None
     cfg = RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125,
                        alpha_clip_rounds=8, clip_retile_cap_frac=1.0, ray_traced_shadows=rt)
-    rig = _smoke().flagship_rig()
+    rig = card_defs.flagship_rig()
     params = make_frame_params(cfg, rig.camera.view_matrix(), rig.camera.position,
                                rig.sun_dir(), device=dev)
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1.0, 0.0, 0.0], 5.0),
@@ -1390,10 +1366,10 @@ def test_clip_worklist_matches_plain(peel_rounds):
     assert calls
     live = empty = 0
     for call in calls:
-        got = h.replay(_snapshot(call), True)
-        ref = h.replay(_snapshot(call), False)
+        got = h.replay(snapshot(call), True)
+        ref = h.replay(snapshot(call), False)
         for g, r in zip(got, ref):
-            assert g.dtype == r.dtype and torch.equal(_words(g), _words(r))
+            assert g.dtype == r.dtype and torch.equal(words(g), words(r))
         n_tiles = call[0][0].shape[1]
         live += int((got[0] < n_tiles).sum())
         empty += int((got[0] >= n_tiles).sum())
@@ -1407,13 +1383,13 @@ def test_clip_merge_matches_plain(peel_rounds):
     _, _, calls = peel_rounds["cuda"]
     assert calls
     for call in calls:
-        got, ref = _snapshot(call), _snapshot(call)
+        got, ref = snapshot(call), snapshot(call)
         h.replay(got, True)
         h.replay(ref, False)
         (gs, _, _, graced), (rs, _, _, rraced) = got[0], ref[0]
-        assert torch.equal(_words(gs), _words(rs))
+        assert torch.equal(words(gs), words(rs))
         for n in graced:
-            assert torch.equal(_words(graced[n]), _words(rraced[n])), n
+            assert torch.equal(words(graced[n]), words(rraced[n])), n
 
 
 def test_clip_peel_rounds_equal_the_plain_path(peel_rounds):
@@ -1423,9 +1399,9 @@ def test_clip_peel_rounds_equal_the_plain_path(peel_rounds):
     (img, wl, mg), (img_p, wl_p, mg_p) = peel_rounds["cuda"], peel_rounds["plain"]
     assert len(wl) == len(wl_p) and len(mg) == len(mg_p) == len(wl)
     for (a, _), (b, _) in zip(wl, wl_p):
-        assert torch.equal(_words(a[0]), _words(b[0])) and torch.equal(a[1], b[1])
+        assert torch.equal(words(a[0]), words(b[0])) and torch.equal(a[1], b[1])
     for (a, _), (b, _) in zip(mg, mg_p):
-        assert torch.equal(_words(a[0]), _words(b[0])) and torch.equal(a[2], b[2])
+        assert torch.equal(words(a[0]), words(b[0])) and torch.equal(a[2], b[2])
     assert torch.equal(img, img_p)
 
 
@@ -1442,22 +1418,22 @@ def test_clip_peel_kernels_on_a_synthetic_state(case):
     from transmission_renderer_tpu_torch.render.frame import _peel_channels
 
     wl, mg = _peel_handles()
-    tiles, ok_p, init_tiles, pad_tile, t0, cap, raced = _snapshot(synthetic_round(case, True))
+    tiles, ok_p, init_tiles, pad_tile, t0, cap, raced = snapshot(synthetic_round(case, True))
     dev = torch.device("cuda")
     state = torch.stack([tiles[n].view(torch.float32) for n in _peel_channels(tiles)]).to(dev)
     args = (state, ok_p.to(dev), init_tiles.to(dev), pad_tile.to(dev), t0, cap)
     got, ref = wl.cuda(*args), wl.plain(*args)
     for g, r in zip(got, ref):
-        assert g.dtype == r.dtype and torch.equal(_words(g), _words(r))
+        assert g.dtype == r.dtype and torch.equal(words(g), words(r))
     raced = {n: a.to(dev) for n, a in raced.items()}
-    merged = [(state.clone(), _snapshot(raced)) for _ in range(2)]
+    merged = [(state.clone(), snapshot(raced)) for _ in range(2)]
     for fn, (s, r) in zip((mg.cuda, mg.plain), merged):
         fn(s, args[1], got[0], r)
     torch.cuda.synchronize()
     (gs, gr), (rs, rr) = merged
-    assert torch.equal(_words(gs), _words(rs)) and not torch.equal(_words(gs), _words(state))
+    assert torch.equal(words(gs), words(rs)) and not torch.equal(words(gs), words(state))
     for n in gr:
-        assert torch.equal(_words(gr[n]), _words(rr[n])), n
+        assert torch.equal(words(gr[n]), words(rr[n])), n
 
 
 def _round_spans_check(spans):
@@ -1514,24 +1490,24 @@ def test_cell_frame_syncs_and_round_spans(cell):
 
 
 # ---------------------------------------------------------------------------
-# pair-stream compaction on the flagship's set-up (chip_smoke.py phase 16)
+# pair-stream compaction on the flagship's set-up (the frames:
+# tests/test_torch_card_hd.py)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def flagship_binning():
     """The 1080p flagship's binning call on the card (its arguments, as
-    render_frame makes it) and chip_smoke.py as a module."""
+    render_frame makes it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
     from transmission_renderer_tpu_torch.render.frame import render_frame
 
-    smoke = _smoke()
-    _, scene, dl, flags, params, lights = smoke.flagship_scene(torch.device("cuda"))
+    _, scene, dl, flags, params, lights = card_defs.flagship_scene(torch.device("cuda"))
     cfg = RenderConfig(width=1920, height=1080)
-    calls = smoke.binning_calls(
+    calls = card_defs.binning_calls(
         lambda: render_frame(scene, dl, params, lights, cfg, flags=flags))
     assert len(calls) == 1
-    return smoke, calls[0]
+    return calls[0]
 
 
 @pytest.mark.parametrize("frac", [0.5, 0.01])
@@ -1539,8 +1515,7 @@ def test_pair_compaction_on_the_flagship_setup(flagship_binning, frac):
     """Compacted at 0.5, the sorted stream equals the uncompacted one's
     valid prefix and tile_start is equal; at 0.01 (the 65,536-slot
     floor) the demand overflows the capacity and the stream is full
-    (chip_smoke.check_compacted_bins raises on any difference)."""
-    smoke, args = flagship_binning
-    demand, cap, s_len = smoke.check_compacted_bins(args, frac)
+    (card_defs.check_compacted_bins raises on any difference)."""
+    demand, cap, s_len = card_defs.check_compacted_bins(flagship_binning, frac)
     assert 0 < cap < s_len
     assert (demand <= cap) == (frac == 0.5)

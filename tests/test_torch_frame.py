@@ -104,23 +104,23 @@ def test_frame_from_bridged_inputs(frames):
 
 
 def test_golden_hd_dropped_tiles_are_the_references():
-    """chip_smoke.py compares with tests/goldens/dragon_hd.png outside
-    GOLDEN_DROPPED_TILES. Those must be exactly the tiles whose bins the
+    """tests/test_torch_card_hd.py compares with tests/goldens/dragon_hd.png
+    outside card_defs.GOLDEN_DROPPED_TILES. Those must be exactly the tiles whose bins the
     reference's pure-JAX raster path (which rendered that golden)
     overflows at the golden's config, counted by the reference's own
     setup_triangles / bin_triangles, not by the port."""
+    from card_defs import GOLDEN_DROPPED_TILES, golden_keep_mask
     from golden_defs import CFG_HD
-    from test_torch_bench_hd import dropped_tiles, smoke_module
+    from test_torch_bench_hd import dropped_tiles
 
-    smoke = smoke_module()
     cfg = CFG_HD
     scene, dl, _ = jdragon(roughness_override=0.25).finish_bundle()
     rig = _rig(*CAM)
     rig.sun_yaw = 4.8
     params = jparams(cfg, rig.camera.view_matrix(), rig.camera.position, rig.sun_dir())
     over = dropped_tiles(cfg, scene, dl, params)
-    assert over == smoke.GOLDEN_DROPPED_TILES
-    keep = smoke.golden_keep_mask(cfg)
+    assert over == GOLDEN_DROPPED_TILES
+    keep = golden_keep_mask(cfg)
     assert keep.shape == (cfg.height, cfg.width)
     assert keep.size - keep.sum() == len(over) * cfg.tile_w * cfg.tile_h
 

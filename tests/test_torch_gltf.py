@@ -146,13 +146,12 @@ def test_jpeg_image_names_its_roadmap_item(tmp_path):
     parity: jpeg.glb's scene as a .gltf whose three JPEG images come from
     a ``data:`` URI, a bufferView and a ``.jpg`` file beside it loads
     through both packages with every image and every array equal."""
-    from test_torch_bench_hd import smoke_module
+    from card_defs import glb_images, glb_parts
 
-    smoke = smoke_module()
     with open(os.path.join(os.path.dirname(__file__), "assets", "jpeg.glb"), "rb") as f:
         glb = f.read()
-    doc, blob = smoke.glb_parts(glb)
-    jpegs = smoke.glb_images(glb)
+    doc, blob = glb_parts(glb)
+    jpegs = glb_images(glb)
     doc["images"][0] = {"uri": "data:image/jpeg;base64," + base64.b64encode(jpegs[0]).decode()}
     (tmp_path / "leaf.jpg").write_bytes(jpegs[2])
     doc["images"][2] = {"uri": "leaf.jpg"}

@@ -48,7 +48,7 @@ from PIL import Image
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))  # the repo root, when run as a script
 
-from test_torch_bench_hd import smoke_module  # noqa: E402
+from card_defs import glb_images, glb_with_images  # noqa: E402
 from transmission_renderer_tpu import cli as jcli  # noqa: E402
 from transmission_renderer_tpu_torch import cli  # noqa: E402
 from transmission_renderer_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
@@ -242,11 +242,10 @@ def fixture_images() -> list:
 
 
 def write_fixture() -> None:
-    smoke = smoke_module()
     with open(os.path.join(ASSETS, "multi.glb"), "rb") as f:
         multi = f.read()
     images = fixture_images()
-    glb = smoke.glb_with_images(multi, [(data, "image/jpeg") for data, _ in images])
+    glb = glb_with_images(multi, [(data, "image/jpeg") for data, _ in images])
     digests = []
     for data, form in images:
         rgba = pil_rgba(data)
@@ -261,11 +260,11 @@ def write_fixture() -> None:
 
 
 def test_fixture_decodes_to_its_digests():
-    """PIL and decode_jpeg both give the committed digests (chip_smoke.py
-    phase 14 holds decode_jpeg to them on the card, without PIL)."""
-    smoke = smoke_module()
+    """PIL and decode_jpeg both give the committed digests
+    (tests/test_torch_card_hd.py holds decode_jpeg to them on the card,
+    without PIL)."""
     with open(FIXTURE, "rb") as f:
-        images = smoke.glb_images(f.read())
+        images = glb_images(f.read())
     with open(DIGESTS) as f:
         digests = json.load(f)
     assert len(images) == len(digests) == 3
@@ -303,9 +302,8 @@ def decode_times() -> None:
     """Print decode_jpeg's seconds per megapixel on this host: each
     image of the fixture, then each form of TIMED_FORMS on a seeded
     1024x1024 texture (the best of three decodes)."""
-    smoke = smoke_module()
     with open(FIXTURE, "rb") as f:
-        fixture = smoke.glb_images(f.read())
+        fixture = glb_images(f.read())
     cases = [(f"jpeg.glb image {k}", data) for k, data in enumerate(fixture)]
     for form, kw in TIMED_FORMS.items():
         img = textured(1024, 1024, 31, "L" if form.startswith("grey") else "RGB", noise=5.0)

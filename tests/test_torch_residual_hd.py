@@ -2,9 +2,10 @@
 visibility-buffer frame (tests/goldens/stress_hd.png's config, camera and
 lights) through both packages on the CPU, from the same arrays.
 
-The 1080p comparisons of chip_smoke.py hold the port's float frames to
-8-bit goldens, and read about 1.4e-3 sRGB RMSE where the same frames at
-128x72 agree with the reference's float frames to ~3e-6. The one ``slow``
+The 1080p comparisons on the card (tests/test_torch_card_hd.py) hold the
+port's float frames to 8-bit goldens, and read about 1.4e-3 sRGB RMSE
+where the same frames at 128x72 agree with the reference's float frames
+to ~3e-6. The one ``slow``
 test here says where that gap lives (``python -m pytest
 tests/test_torch_residual_hd.py -m slow -s``; ~6 min, a few GB). It
 prints, and holds:

@@ -47,7 +47,7 @@ torch.set_num_threads(1)
 # (0.625 helmet, 0.8125 bindless) overflow at 128x72, where the floor
 # fills most of the 72 blocks: the block-sparse opaque shade runs here
 # with a cap of every block, and at the bench's caps on the card
-# (chip_smoke.py phase 10). The transmissive scenes lower the 256-tile
+# (tests/test_torch_card_hd.py). The transmissive scenes lower the 256-tile
 # floor so that the transmissive raster feeds the shade through the
 # fused sparse path, as at 1080p.
 FUSED = {"sparse_raster_tile_floor": 1, "transmission_tile_cap_frac": 0.85}
@@ -230,14 +230,14 @@ def test_bindless_lights_match_reference(n):
 
 
 def test_card_checks_the_same_small_frames():
-    """chip_smoke.py phase 10 holds the card's 128x72 frames to the small
+    """tests/test_torch_card_hd.py holds the card's 128x72 frames to the small
     goldens at the scene sizes, cameras and config changes these tests
     use, and its 1080p frames take the bench's block caps, as the 1080p
     goldens of tests/test_torch_bench_hd.py."""
-    from test_torch_bench_hd import reference_inputs, smoke_module
+    from card_defs import BENCH_SCENES
+    from test_torch_bench_hd import reference_inputs
 
-    smoke = smoke_module()
-    for name, spec in smoke.BENCH_SCENES.items():
+    for name, spec in BENCH_SCENES.items():
         fn, kw, golden, changes = SCENES[name]
         assert spec["builder"] == fn
         if spec["small"] is None:

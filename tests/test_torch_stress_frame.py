@@ -410,8 +410,8 @@ def render_stress_hd_golden() -> np.ndarray:
 
 @pytest.mark.slow
 def test_stress_hd_golden_is_the_references():
-    """tests/goldens/stress_hd.png (which chip_smoke.py phase 9 holds the
-    port's 1080p kernel-branch frame to) is the reference's own render,
+    """tests/goldens/stress_hd.png (which tests/test_torch_card_hd.py holds
+    the port's 1080p kernel-branch frame to) is the reference's own render,
     with no bin overflow."""
     golden = read_png(os.path.join(GOLDEN_DIR, "stress_hd.png"))[..., :3] / 255.0
     got = render_stress_hd_golden()

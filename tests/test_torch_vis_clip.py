@@ -15,8 +15,9 @@ at tests/test_goldens.py's sRGB RMSE < 4e-3.
 
 The ``slow`` test renders the reference's 1080p stress frame on this
 branch (the render of tests/goldens/stress_hd.png, ~2.5 min) and holds
-chip_smoke.py's pinned STRESS_VIS_DIAGNOSTICS, which phase 13 holds the
-port's frame on the card to, to its diagnostics.
+card_defs.py's pinned STRESS_VIS_DIAGNOSTICS, which
+tests/test_torch_card_hd.py holds the port's frame on the card to, to its
+diagnostics.
 
 Units: the alpha test's keep and kill decisions equal _make_alpha_fn's on
 numpy-seeded fragments, with the cutoff set within 1e-6 of each
@@ -25,7 +26,6 @@ the reference's compiler contracts the uv derivatives); the plain raster
 with alpha gives the same bits whole or segmented.
 """
 
-import importlib.util
 import os
 from functools import partial
 
@@ -193,16 +193,13 @@ def test_vis_clip_frame_meets_golden():
 
 @pytest.mark.slow
 def test_stress_vis_hd_diagnostics_are_the_references():
-    """chip_smoke.py's STRESS_VIS_DIAGNOSTICS are the reference's own for
+    """card_defs.py's STRESS_VIS_DIAGNOSTICS are the reference's own for
     its 1080p stress frame on the visibility-buffer branch (the bench's
     config, camera and lights: tests/goldens/stress_hd.png's render)."""
+    from card_defs import STRESS_VIS_DIAGNOSTICS, diagnostics_dict
     from transmission_renderer_tpu import config as jconfig
     from transmission_renderer_tpu.scene.camera import CameraRig as JRig
 
-    path = os.path.join(os.path.dirname(GOLDEN_DIR), os.pardir, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     cfg = jconfig.RenderConfig(width=1920, height=1080, opaque_block_cap_frac=0.8125)
     scene, dl, flags = jstress().finish_bundle()
     rig = JRig()  # the CameraRig's default sun, as the bench's
@@ -214,7 +211,7 @@ def test_stress_vis_hd_diagnostics_are_the_references():
                     jpoint([8.0, 0.8, 0.0], [0.0, 1.0, 0.0], 10.0)])
     _, diag = jax.jit(partial(jframe.render_frame, config=cfg, flags=flags,
                               return_diagnostics=True))(scene, dl, params, lights)
-    assert smoke.diagnostics_dict(_np(diag)) == smoke.STRESS_VIS_DIAGNOSTICS
+    assert diagnostics_dict(_np(diag)) == STRESS_VIS_DIAGNOSTICS
 
 
 # ---------------------------------------------------------------------------

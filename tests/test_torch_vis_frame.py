@@ -22,16 +22,15 @@ _evaluate_pixel_material and _evaluate_lights_common (atol 1e-5 /
 rtol 1e-4) and ibl_volume_refraction (atol 1e-6 / rtol 1e-5) on the same
 inputs.
 
-At the 1080p golden's config (golden_defs.CFG_HD, the frame chip_smoke.py
-phase 8 renders on the card): the binning-decided diagnostics that
-chip_smoke.py pins (HD_VIS_DIAGNOSTICS) are recomputed from the
+At the 1080p golden's config (golden_defs.CFG_HD, the frame
+tests/test_torch_card_hd.py renders on the card): the binning-decided
+diagnostics that card_defs.py pins (HD_VIS_DIAGNOSTICS) are recomputed from the
 reference's own binning and the port's; the ``slow`` test renders the
 whole frame through both packages and holds every diagnostic and the
 golden dragon_hd.png (sRGB RMSE < 4e-3 over the whole frame)."""
 
 import dataclasses
 import functools
-import importlib.util
 import os
 from functools import partial
 
@@ -41,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from card_defs import HD_VIS_DIAGNOSTICS, diagnostics_dict
 from golden_defs import CFG, CFG_HD, GOLDEN_DIR, _dragon, _lights, _rig
 from pixel_box_defs import pixel_box
 from transmission_renderer_tpu.config import (
@@ -352,14 +352,6 @@ def test_ibl_volume_refraction_matches_reference():
 # the 1080p golden's config
 # ---------------------------------------------------------------------------
 
-def _smoke():
-    path = os.path.join(os.path.dirname(GOLDEN_DIR), os.pardir, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
-
-
 def _hd_inputs():
     """The golden's scene, params and lights in the reference."""
     scene, dl, flags = jdragon(roughness_override=0.25).finish_bundle()
@@ -373,7 +365,7 @@ def _hd_inputs():
 
 
 def test_hd_vis_binning_diagnostics_are_the_references():
-    """max_bin_count, big_tri_count and the capacities that chip_smoke.py
+    """max_bin_count, big_tri_count and the capacities that card_defs.py
     pins for the 1080p visibility-buffer frame are what the reference's
     materialised binning gives per pass (the frame reports the larger of
     its two passes), and the port's binning of the same clip coordinates
@@ -401,7 +393,7 @@ def test_hd_vis_binning_diagnostics_are_the_references():
         return clip, out
 
     clip, out = _np(passes(scene, dl, params))
-    pinned = _smoke().HD_VIS_DIAGNOSTICS
+    pinned = HD_VIS_DIAGNOSTICS
     assert pinned["bin_capacity"] == cfg.max_tris_per_tile
     assert pinned["big_tri_capacity"] == cfg.max_big_tris
     assert pinned["max_bin_count"] == max(int(b.max_bin_count) for _, b in out)
@@ -422,19 +414,18 @@ def test_hd_vis_binning_diagnostics_are_the_references():
 @pytest.mark.slow
 def test_hd_vis_frame_matches_reference_and_golden():
     """The whole 1080p frame on both packages' visibility-buffer branch:
-    every diagnostic of each equals chip_smoke.py's pinned values, the
+    every diagnostic of each equals card_defs.py's pinned values, the
     port's image is within linear LDR RMSE 1e-3 of the reference's, and
     within sRGB RMSE 4e-3 of dragon_hd.png over the whole frame (the
     golden's dropped triangles are dropped by the port too)."""
-    smoke = _smoke()
     scene, dl, flags, params, lights = _hd_inputs()
     ref, ref_diag = jax.jit(partial(jframe.render_frame, config=CFG_HD, flags=flags,
                                     return_diagnostics=True))(scene, dl, params, lights)
     inputs = bridge.from_jax_arrays(_np(scene), _np(dl), _np(params), _np(lights), flags,
                                     device="cpu")
     img, diag = render_frame(*inputs[:4], CFG_HD, flags=inputs[4], return_diagnostics=True)
-    assert smoke.diagnostics_dict(_np(ref_diag)) == smoke.HD_VIS_DIAGNOSTICS
-    assert smoke.diagnostics_dict(diag) == smoke.HD_VIS_DIAGNOSTICS
+    assert diagnostics_dict(_np(ref_diag)) == HD_VIS_DIAGNOSTICS
+    assert diagnostics_dict(diag) == HD_VIS_DIAGNOSTICS
     assert diag.overflowed()
     img = img.numpy()
     ref_rmse = float(np.sqrt(np.mean((img - np.asarray(ref)) ** 2)))

@@ -38,9 +38,9 @@ def _packet_swizzle_fns(shape: tuple, mode: str | None):
     walk paid the union of its rays' paths; on the card 32 consecutive
     rays are one warp, whose walk pays the union of its rays' paths in
     the same way. Any-hit is a per-ray predicate, so the order changes no
-    result. chip_smoke.py times the occlusion kernel on the frame's rays
-    in this order and in row-major pixel order (PERF.md has the
-    numbers)."""
+    result: tests/test_torch_card_hd.py holds the occlusion kernel's hits
+    in this order and in row-major pixel order equal (PERF.md has the
+    times of both)."""
     if mode == "2d" and len(shape) >= 2 and shape[0] % 8 == 0 and shape[1] % 16 == 0:
         h, w = shape[0], shape[1]
 

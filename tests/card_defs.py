@@ -9,6 +9,7 @@ because spawned ranks import them by name."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import struct
@@ -311,7 +312,7 @@ def glb_with_images(glb: bytes, images: list) -> bytes:
 
 def all_handles() -> tuple:
     """Every kernel's handle: the flagship's four, the occlusion walk, the
-    visibility raster, the closest-hit walk and the clip peel's three."""
+    visibility raster, the closest-hit walk and the clip peel's four."""
     from transmission_renderer_tpu_torch.ops import (
         bvh_closest, bvh_packet, raster_gbuf, raster_vis, tap_finish)
     from transmission_renderer_tpu_torch.render import frame, shade_kernel
@@ -319,36 +320,65 @@ def all_handles() -> tuple:
     return (raster_gbuf.KERNEL, tap_finish.TAP_KERNEL, shade_kernel.KERNEL,
             tap_finish.FETCH_KERNEL, bvh_packet.KERNEL, raster_vis.KERNEL,
             bvh_closest.KERNEL, frame.CLIP_ALPHA_KERNEL, frame.CLIP_WORKLIST_KERNEL,
-            frame.CLIP_MERGE_KERNEL)
+            frame.CLIP_MERGE_KERNEL, frame.CLIP_ROUNDS_KERNEL)
 
 
 def snapshot(x):
     """``x`` with every tensor in it copied (tuples, lists and dicts
-    walked)."""
+    walked; a NamedTuple, such as the scene, which no kernel writes, is
+    kept as it is)."""
     if isinstance(x, torch.Tensor):
         return x.clone()
     if isinstance(x, dict):
         return {k: snapshot(v) for k, v in x.items()}
-    if isinstance(x, (tuple, list)):
+    if isinstance(x, (tuple, list)) and not hasattr(x, "_fields"):
         return type(x)(snapshot(v) for v in x)
     return x
 
 
 class Snapshots(list):
     """A KernelHandle recorder that keeps each call's arguments as they
-    were when the call was made: the peel's worklist and merge read a
-    state and ok that later rounds change in place."""
+    were when the call was made: the peel's rounds handle, worklist and
+    merge read a state and ok that they or later rounds change in place."""
 
     def append(self, call):
         super().append(snapshot(call))
 
 
+@contextlib.contextmanager
+def plain_versions(*handles):
+    """Within the block each handle runs its plain version for CUDA
+    operands too."""
+    kept = [h.cuda for h in handles]
+    for h in handles:
+        h.cuda = h.plain
+    try:
+        yield
+    finally:
+        for h, cuda in zip(handles, kept):
+            h.cuda = cuda
+
+
+@contextlib.contextmanager
+def snapshots_of(*handles):
+    """Within the block each handle's calls are recorded by Snapshots ->
+    the recorders, in the order of ``handles``."""
+    recorders = [Snapshots() for _ in handles]
+    for h, r in zip(handles, recorders):
+        h.recorder = r
+    try:
+        yield recorders
+    finally:
+        for h in handles:
+            h.recorder = None
+
+
 def record(frame, snapshots: bool = True) -> tuple:
     """(frame()'s result, {kernel name: recorded calls}, {kernel name:
-    launches}) with every count reset just before; the peel's worklist and
-    merge recorded by Snapshots (``snapshots``)."""
+    launches}) with every count reset just before; the peel's rounds
+    handle, worklist and merge recorded by Snapshots (``snapshots``)."""
     handles = all_handles()
-    peel = {"clip_worklist", "clip_merge"} if snapshots else set()
+    peel = {"clip_rounds", "clip_worklist", "clip_merge"} if snapshots else set()
     for h in handles:
         h.launches = 0
         h.recorder = Snapshots() if h.name in peel else []
@@ -418,7 +448,42 @@ def check_clip_alpha(calls, seed: int = 29) -> None:
         assert torch.equal(got[~named], base[~named])
 
 
-def check_clip_peel(wl_calls, mg_calls) -> None:
+def check_clip_peel(calls) -> None:
+    """Each recorded call of the peel's rounds handle (recorded by
+    Snapshots: its state and ok as they were before the call) three ways,
+    each over a copy: the C entry (csrc/clip_peel.cu's
+    trt_clip_peel_rounds), the per-round kernels launched round by round
+    (the handle's plain loop on the card) and the plain loop (that loop
+    over the per-round plain versions, kernel 1's and the alpha test's
+    included): the state, ok and every round's demand equal bit for bit.
+    The round-by-round run's worklists and merges then each go through the
+    kernel and its plain version: every output, and the merged state and
+    raced channels, equal bit for bit."""
+    from transmission_renderer_tpu_torch.ops import raster_gbuf
+    from transmission_renderer_tpu_torch.render.frame import (
+        CLIP_ALPHA_KERNEL,
+        CLIP_MERGE_KERNEL as mg,
+        CLIP_ROUNDS_KERNEL as h,
+        CLIP_WORKLIST_KERNEL as wl,
+    )
+
+    assert calls, "the frame never called the peel's rounds handle"
+    for call in calls:
+        c_call, loop_call, plain_call = snapshot(call), snapshot(call), snapshot(call)
+        demand = h.replay(c_call, True)
+        with snapshots_of(wl, mg) as (wl_calls, mg_calls):
+            loop_demand = h.replay(loop_call, False)
+        with plain_versions(wl, mg, raster_gbuf.KERNEL, CLIP_ALPHA_KERNEL):
+            plain_demand = h.replay(plain_call, False)
+        assert len(wl_calls) == len(mg_calls) == demand.shape[0] == len(call[0][6])
+        for other, other_demand in ((loop_call, loop_demand), (plain_call, plain_demand)):
+            assert torch.equal(demand, other_demand), (demand.tolist(), other_demand.tolist())
+            assert torch.equal(words(c_call[0][1]), words(other[0][1]))
+            assert torch.equal(c_call[0][2], other[0][2])
+        round_kernels_match_plain(wl_calls, mg_calls)
+
+
+def round_kernels_match_plain(wl_calls, mg_calls) -> None:
     """Each recorded round's worklist and merge (recorded by Snapshots)
     through the kernels and the plain versions, each over a copy of its
     arguments: every output, and the merged state and raced channels,
@@ -589,8 +654,10 @@ def band_frames(mesh, stress: bool = False) -> dict:
     the frame, holds every kernel call against its plain version) and at
     a halo of the band height, and the ray-traced flagship at full and
     half resolution (kernel 5 exact on every band). With ``stress``, the
-    converged stress frame (the peel's alpha tests, worklists and merges
-    on the band's tile ids bit for bit on every rank) and the stress frame
+    converged stress frame (on the band's tile ids, on every rank: the
+    peel's first-round alpha tests bit for bit, and its rounds handle's
+    calls through the C entry, the round-by-round kernels and the plain
+    loop bit-equal) and the stress frame
     on the visibility branch (the last band's kernel-6 calls against their
     plain version). -> {frame: LDR array, "launches"..., "diag"...}."""
     from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
@@ -630,9 +697,10 @@ def band_frames(mesh, stress: bool = False) -> dict:
             out[key], out[f"{key}_diag"] = ldr.cpu().numpy(), diagnostics_dict(diag)
             if key == "stress":
                 rounds = 2 * (cfgs[key].alpha_clip_rounds - 1)
-                assert len(calls["clip_worklist"]) == len(calls["clip_merge"]) == rounds
+                assert len(calls["clip_rounds"]) == 2
+                assert out[f"{key}_launches"]["clip_worklist"] == rounds
                 check_clip_alpha(calls["clip_alpha"])
-                check_clip_peel(calls["clip_worklist"], calls["clip_merge"])
+                check_clip_peel(calls["clip_rounds"])
             elif last:
                 from transmission_renderer_tpu_torch.ops import raster_vis
 

@@ -45,9 +45,10 @@ RT = dataclasses.replace(HD, ray_traced_shadows=True)
 STRESS = dataclasses.replace(HD, opaque_block_cap_frac=0.8125)
 # the flagship's passes: kernel 1 and kernel 3 each, the diffuse tap, the
 # refraction fetch; two peels of the default 4 rounds: an alpha test a
-# round, a worklist and a merge a re-race round
+# round, a worklist and a merge a re-race round, one rounds-handle call a
+# peel
 FLAGSHIP = {"raster_gbuf": 2, "tap_finish": 1, "shade": 2, "transmission_fetch": 1}
-PEEL = {"clip_alpha": 8, "clip_worklist": 6, "clip_merge": 6}
+PEEL = {"clip_alpha": 8, "clip_worklist": 6, "clip_merge": 6, "clip_rounds": 2}
 KERNELS = ("raster_gbuf", "tap_finish", "shade", "transmission_fetch")
 # the quality flags, each with the reference's own pinned bound on the
 # frame against the exact one (RMSE): tests/test_e2e.py:93-103 (half-res,
@@ -318,7 +319,7 @@ def matches_plain(hd, kernel):
     from transmission_renderer_tpu_torch.ops.cull import transform_vertices
 
     if kernel == "clip_peel":
-        cd.check_clip_peel(hd.calls["clip_worklist"], hd.calls["clip_merge"])
+        cd.check_clip_peel(hd.calls["clip_rounds"])
         return
     calls = hd.calls[kernel]
     assert calls
@@ -623,17 +624,22 @@ def test_stress_converged_meets_its_golden(stress_converged):
     stress_hd.png (the reference's frame) within sRGB RMSE 4e-3."""
     (img, diag), _, launches = stress_converged
     assert int(diag.clip_unresolved) == 0 and not diag.overflowed()
-    assert launches["clip_alpha"] == 16
+    assert launches["clip_alpha"] == 16 and launches["clip_rounds"] == 2
     assert srgb_rmse(img, golden("stress_hd")) < 4e-3
 
 
 def test_stress_converged_peel_kernels_match_plain(stress_converged):
-    """Its 16 alpha tests, and its 14 re-race rounds' worklists and merges
-    (csrc/clip_peel.cu), bit for bit against their plain versions."""
+    """Its two first-round alpha tests bit for bit against their plain
+    version; its two rounds-handle calls (14 re-race rounds) through the C
+    entry, the round-by-round kernels and the plain loop bit-equal,
+    and the rounds' worklists and merges (csrc/clip_peel.cu) bit for bit
+    against their plain versions; kernel 1's recorder holds each peel's 7
+    rounds."""
     _, calls, _ = stress_converged
-    assert len(calls["clip_alpha"]) == 16 and len(calls["clip_worklist"]) == 14
+    assert len(calls["clip_alpha"]) == 2 and len(calls["clip_rounds"]) == 2
+    assert len(calls["raster_gbuf"]) == 2 + 2 * 8
     cd.check_clip_alpha(calls["clip_alpha"])
-    cd.check_clip_peel(calls["clip_worklist"], calls["clip_merge"])
+    cd.check_clip_peel(calls["clip_rounds"])
 
 
 # ---------------------------------------------------------------------------

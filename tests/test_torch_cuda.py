@@ -17,11 +17,14 @@ out-of-range indices reported through the error word); the clip peel's
 alpha test (csrc/clip_alpha.cu) on the stress scene's kernel-branch
 frame at 256x144, dense and sparse first rounds (every call bit for bit,
 the rows no slot names left alone, one launch per clip_alpha_test span);
-the peel's re-race worklist and merge (csrc/clip_peel.cu) on that frame
-with the benchmark's caps and the default ones and on a glass_dragon
-frame (every call bit for bit, the state and ok at every round and the
-image equal to the plain path's, four launches and at most 25 ops a
-round), and each benchmark cell's host syncs a frame;
+the peel's re-race rounds (csrc/clip_peel.cu: the worklist, the merge
+and the C entry that launches every round of a peel) on that frame with
+the benchmark's caps and the default ones, on a glass_dragon frame and on
+synthetic states (every worklist and merge bit for bit, the C entry's
+state, ok and demand equal to the round-by-round kernels' and the plain
+loop's, the state and ok at every peel and the image equal to the
+plain path's, one C call and no sync a peel), and each benchmark cell's
+host syncs a frame;
 pair-stream
 compaction of the 1080p flagship's binning call (the valid prefix, the
 overflow); the pixel box: a sliver of the glass blob drawn by neither
@@ -1148,13 +1151,16 @@ def peel_captured(request):
     """The stress scene's kernel-branch frame at 256x144 on the card (two
     alpha-clip peels of the default 4 rounds; "sparse": the 1-tile floor
     sends each peel's first round down its sparse worklist), the peel's
-    alpha-test calls recorded -> (config, calls, launches)."""
+    re-race rounds launched round by round (the rounds handle's plain
+    loop), so that each of its alpha tests is a call of the handle, and
+    those calls recorded -> (config, calls, launches)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
     from transmission_renderer_tpu_torch.models.procedural import build_stress_scene
     from transmission_renderer_tpu_torch.pbr.lights import pack_lights, point_light
     from transmission_renderer_tpu_torch.render.frame import (
         CLIP_ALPHA_KERNEL,
+        CLIP_ROUNDS_KERNEL,
         make_frame_params,
         render_frame,
     )
@@ -1173,8 +1179,9 @@ def peel_captured(request):
     lights = pack_lights([point_light([0.0, 0.8, 0.0], [1, 0, 0], 5.0)], device=dev)
     h = CLIP_ALPHA_KERNEL
     h.recorder, h.launches = [], 0
-    img = render_frame(scene, dl, params, lights, cfg, flags=flags)
-    torch.cuda.synchronize()
+    with card_defs.plain_versions(CLIP_ROUNDS_KERNEL):
+        img = render_frame(scene, dl, params, lights, cfg, flags=flags)
+        torch.cuda.synchronize()
     calls, launches, h.recorder = h.recorder, h.launches, None
     assert bool(torch.isfinite(img).all())
     return cfg, calls, launches, (scene, dl, flags, params, lights)
@@ -1208,13 +1215,15 @@ def test_clip_alpha_matches_plain(peel_captured):
 
 
 def test_clip_alpha_test_spans_count_one_launch(peel_captured):
-    """In counting mode each clip_alpha_test span holds the kernel's one
-    launch and at most 10 aten ops."""
-    from transmission_renderer_tpu_torch.render.frame import render_frame
+    """In counting mode each clip_alpha_test span (the rounds launched
+    round by round, as the fixture's frame) holds the kernel's one launch
+    and at most 10 aten ops."""
+    from transmission_renderer_tpu_torch.render.frame import CLIP_ROUNDS_KERNEL, render_frame
     from transmission_renderer_tpu_torch.utils.profiling import FrameTracer, tracing
 
     cfg, calls, _, (scene, dl, flags, params, lights) = peel_captured
-    with tracing(FrameTracer("cuda", counting=True)) as tracer:
+    with card_defs.plain_versions(CLIP_ROUNDS_KERNEL), \
+            tracing(FrameTracer("cuda", counting=True)) as tracer:
         render_frame(scene, dl, params, lights, cfg, flags=flags)
         torch.cuda.synchronize()
     spans = [s for s in tracer.read() if s.name == "clip_alpha_test"]
@@ -1225,41 +1234,51 @@ def test_clip_alpha_test_spans_count_one_launch(peel_captured):
 
 
 # ---------------------------------------------------------------------------
-# the clip peel's re-race rounds (csrc/clip_peel.cu: the worklist and the
-# merge around kernel 1) on the stress frame and the benchmark cells' frames
+# the clip peel's re-race rounds (csrc/clip_peel.cu: the rounds handle, and
+# the worklist and the merge around kernel 1 that it launches) on the
+# stress frame and the benchmark cells' frames
 # ---------------------------------------------------------------------------
 
 # each benchmark cell's host syncs a frame (PERF.md, Where the time goes)
 CELL_SYNCS = {"foliage.orbit": 7, "dragon.orbit": 7, "dragon.rt_orbit": 9}
+# the most aten ops a clip_rounds span dispatches on the card (the C
+# entry's scratch and the demand's unbind; the rounds themselves none)
+ROUNDS_SPAN_OPS = 10
 
 
 def _peel_handles():
     from transmission_renderer_tpu_torch.render.frame import (
         CLIP_MERGE_KERNEL,
+        CLIP_ROUNDS_KERNEL,
         CLIP_WORKLIST_KERNEL,
     )
 
-    return CLIP_WORKLIST_KERNEL, CLIP_MERGE_KERNEL
+    return CLIP_ROUNDS_KERNEL, CLIP_WORKLIST_KERNEL, CLIP_MERGE_KERNEL
 
 
 def _record_peel(frame, plain: bool):
-    """``frame()`` on the card with the peel's worklist and merge calls
-    recorded (``plain``: their plain versions run in place of the
-    kernels) -> (image, worklist calls, merge calls)."""
-    handles = _peel_handles()
-    kept = [h.cuda for h in handles]
-    for h in handles:
-        h.recorder = card_defs.Snapshots()
-        if plain:
-            h.cuda = h.plain
-    try:
+    """``frame()`` on the card with the peel's rounds-handle calls recorded
+    by Snapshots (``plain``: the rounds handle's Python loop over the worklist's
+    and merge's plain versions runs in place of the C entry) -> (image,
+    rounds calls)."""
+    rounds, wl, mg = _peel_handles()
+    with card_defs.plain_versions(*((rounds, wl, mg) if plain else ())), \
+            card_defs.snapshots_of(rounds) as (calls,):
         img = frame()
         torch.cuda.synchronize()
-    finally:
-        calls = [h.recorder for h in handles]
-        for h, cuda in zip(handles, kept):
-            h.recorder, h.cuda = None, cuda
-    return img, calls[0], calls[1]
+    return img, calls
+
+
+def _round_by_round(calls):
+    """Each recorded rounds call replayed over a copy through the
+    per-round kernels (the rounds handle's Python loop on the card), their calls
+    recorded by Snapshots -> (worklist calls, merge calls)."""
+    rounds, wl, mg = _peel_handles()
+    with card_defs.snapshots_of(wl, mg) as (wl_calls, mg_calls):
+        for call in calls:
+            rounds.replay(snapshot(call), False)
+    torch.cuda.synchronize()
+    return wl_calls, mg_calls
 
 
 def _glass_dragon_scene():
@@ -1347,22 +1366,26 @@ def _dragon_cell_frame():
 
 @pytest.fixture(scope="module", params=sorted(PEEL_FRAMES))
 def peel_rounds(request):
-    """One frame's peel rounds recorded twice on the card, through the
-    kernels and through the plain versions -> {"cuda": (image, worklist
-    calls, merge calls), "plain": the same}."""
+    """One frame's peel recorded twice on the card, through the C rounds
+    entry and through its Python loop over the worklist's and merge's
+    plain versions, and the C run's rounds calls replayed round by round
+    through the per-round kernels -> {"cuda": (image, rounds calls),
+    "plain": the same, "rounds": (worklist calls, merge calls)}."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
     frame = PEEL_FRAMES[request.param]()
-    return {"cuda": _record_peel(frame, False), "plain": _record_peel(frame, True)}
+    cuda = _record_peel(frame, False)
+    return {"cuda": cuda, "plain": _record_peel(frame, True),
+            "rounds": _round_by_round(cuda[1])}
 
 
 def test_clip_worklist_matches_plain(peel_rounds):
-    """Every recorded worklist call through the kernel and the plain
+    """Every worklist call of the rounds through the kernel and the plain
     version: ids, raced tile ids, demand, seed depths and peel bounds
     bit-equal; the frame's rounds see failing tiles, empty slots and
     (somewhere) a demand past the round's cap or none."""
-    h, _ = _peel_handles()
-    _, calls, _ = peel_rounds["cuda"]
+    _, h, _ = _peel_handles()
+    calls, _ = peel_rounds["rounds"]
     assert calls
     live = empty = 0
     for call in calls:
@@ -1377,10 +1400,11 @@ def test_clip_worklist_matches_plain(peel_rounds):
 
 
 def test_clip_merge_matches_plain(peel_rounds):
-    """Every recorded merge call through the kernel and the plain version
-    over copies of its state and raced channels: both bit-equal after."""
-    _, h = _peel_handles()
-    _, _, calls = peel_rounds["cuda"]
+    """Every merge call of the rounds through the kernel and the plain
+    version over copies of its state and raced channels: both bit-equal
+    after."""
+    _, _, h = _peel_handles()
+    _, calls = peel_rounds["rounds"]
     assert calls
     for call in calls:
         got, ref = snapshot(call), snapshot(call)
@@ -1393,16 +1417,22 @@ def test_clip_merge_matches_plain(peel_rounds):
 
 
 def test_clip_peel_rounds_equal_the_plain_path(peel_rounds):
-    """The frame through the kernels and through the plain versions: the
-    peel's state and ok at every round (each after the round before) and
-    the merged channels bit-equal, and the same image bit for bit."""
-    (img, wl, mg), (img_p, wl_p, mg_p) = peel_rounds["cuda"], peel_rounds["plain"]
-    assert len(wl) == len(wl_p) and len(mg) == len(mg_p) == len(wl)
-    for (a, _), (b, _) in zip(wl, wl_p):
-        assert torch.equal(words(a[0]), words(b[0])) and torch.equal(a[1], b[1])
-    for (a, _), (b, _) in zip(mg, mg_p):
-        assert torch.equal(words(a[0]), words(b[0])) and torch.equal(a[2], b[2])
+    """The frame through the C entry and through the rounds handle's loop over
+    the plain worklist and merge: the peel's state and ok before each
+    rounds call (each after the peel before) bit-equal, and the same image
+    bit for bit."""
+    (img, calls), (img_p, calls_p) = peel_rounds["cuda"], peel_rounds["plain"]
+    assert len(calls) == len(calls_p) == 2
+    for (a, _), (b, _) in zip(calls, calls_p):
+        assert torch.equal(words(a[1]), words(b[1])) and torch.equal(a[2], b[2])
     assert torch.equal(img, img_p)
+
+
+def test_clip_rounds_entry_matches_both_loops(peel_rounds):
+    """Each recorded rounds call through the C entry, the round-by-round
+    kernels and the plain loop (card_defs.check_clip_peel): the state,
+    ok and every round's demand bit-equal."""
+    card_defs.check_clip_peel(peel_rounds["cuda"][1])
 
 
 @pytest.mark.parametrize("case", ["overflow", "band-overflow", "band-empty-slots",
@@ -1417,7 +1447,7 @@ def test_clip_peel_kernels_on_a_synthetic_state(case):
     from test_torch_clip_peel import synthetic_round
     from transmission_renderer_tpu_torch.render.frame import _peel_channels
 
-    wl, mg = _peel_handles()
+    _, wl, mg = _peel_handles()
     tiles, ok_p, init_tiles, pad_tile, t0, cap, raced = snapshot(synthetic_round(case, True))
     dev = torch.device("cuda")
     state = torch.stack([tiles[n].view(torch.float32) for n in _peel_channels(tiles)]).to(dev)
@@ -1436,21 +1466,44 @@ def test_clip_peel_kernels_on_a_synthetic_state(case):
         assert torch.equal(words(gr[n]), words(rr[n])), n
 
 
-def _round_spans_check(spans):
-    """Each clip_round_k span: one launch each of kernel 1, the alpha test,
-    the worklist and the merge, at most 25 dispatched ops, no sync."""
-    rounds = [s for s in spans if s.name.startswith("clip_round_")]
-    assert rounds
-    for s in rounds:
-        assert s.kernels == {"raster_gbuf": 1, "clip_alpha": 1, "clip_worklist": 1,
-                             "clip_merge": 1}, (s.name, s.kernels)
-        assert s.counters["ops"] <= 25, (s.name, s.counters)
-        assert s.counters["syncs"] == 0, (s.name, s.counters)
-    return rounds
+@pytest.mark.parametrize("case", ["overflow", "band-overflow", "every-tile"])
+def test_clip_rounds_entry_on_a_synthetic_state(case):
+    """tests/test_torch_clip_peel.py's rounds (its synthetic states over a
+    frame of random triangles, three rounds with a shrinking last cap, a
+    band's offset) through the C entry, the round-by-round kernels and
+    the plain loop on the card (card_defs.check_clip_peel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
+    from test_torch_clip_peel import _rounds_case
+
+    dev = torch.device("cuda")
+
+    def to_card(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, tuple):
+            return type(x)(*map(to_card, x)) if hasattr(x, "_fields") else tuple(map(to_card, x))
+        return x
+
+    card_defs.check_clip_peel([(to_card(_rounds_case(case, True)), {})])
+
+
+def _rounds_span_check(spans, rounds: int):
+    """Each clip_rounds span: one call of the C entry, which launches a
+    round's kernel 1, alpha test, worklist and merge ``rounds`` times, at
+    most ROUNDS_SPAN_OPS dispatched ops, no sync."""
+    found = [s for s in spans if s.name == "clip_rounds"]
+    assert found
+    for s in found:
+        assert s.kernels == {"clip_rounds": 1, "raster_gbuf": rounds, "clip_alpha": rounds,
+                             "clip_worklist": rounds, "clip_merge": rounds}, s.kernels
+        assert s.counters["ops"] <= ROUNDS_SPAN_OPS, s.counters
+        assert s.counters["syncs"] == 0, s.counters
+    return found
 
 
 @pytest.mark.parametrize("frame", ["stress-cells", "stress-default"])
-def test_clip_round_spans_count_four_launches(frame):
+def test_clip_rounds_span_counts_one_call(frame):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
     from transmission_renderer_tpu_torch.utils.profiling import FrameTracer, tracing
@@ -1460,14 +1513,15 @@ def test_clip_round_spans_count_four_launches(frame):
     with tracing(FrameTracer("cuda", counting=True)) as tracer:
         render()
         torch.cuda.synchronize()
-    _round_spans_check(tracer.read())
+    assert len(_rounds_span_check(tracer.read(), {"stress-cells": 7, "stress-default": 3}[
+        frame])) == 2
 
 
 @pytest.mark.parametrize("cell", sorted(CELL_SYNCS))
 def test_cell_frame_syncs_and_round_spans(cell):
     """A cell's frame in counting mode: its host syncs as before the
-    peel's rounds moved onto the card, and every round span as on the
-    stress frame."""
+    peel's rounds moved onto the card, and each peel's rounds one call of
+    the C entry as on the stress frame."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernels build with nvcc for sm_90a)")
     from transmission_renderer_tpu_torch.utils.profiling import (
@@ -1485,8 +1539,8 @@ def test_cell_frame_syncs_and_round_spans(cell):
     spans = tracer.read()
     (frame,) = [s for s in spans if s.name == FRAME_SPAN]
     assert frame.counters["syncs"] == CELL_SYNCS[cell], frame.counters
-    rounds = _round_spans_check(spans)
-    assert len(rounds) == 2 * 7  # both peels run 8 rounds: 7 re-races each
+    # both peels run 8 rounds: 7 re-races each, from one call a peel
+    assert len(_rounds_span_check(spans, 7)) == 2
 
 
 # ---------------------------------------------------------------------------

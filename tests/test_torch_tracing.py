@@ -146,14 +146,18 @@ def test_spans_nest_with_frame_ids_and_self_time(frames):
         # the parent is the innermost span open around this one
         around = [o for o in spans if o.id < s.id and o.host_close >= s.host_close]
         assert max(around, key=lambda o: o.host_open) is p
-    # the peel's rounds: render_frame > raster_clip_peel > clip_round_k > clip_alpha_test
+    # the peel's rounds: render_frame > raster_clip_peel > clip_rounds >
+    # clip_alpha_test (on the CPU the rounds run as the Python loop)
     rounds = CFG.alpha_clip_rounds - 1
     for frame in (0, 1):
         peel = [s for s in spans if s.frame == frame and s.name == "raster_clip_peel"]
         assert len(peel) == 2 and all(by_id[s.parent].name == FRAME_SPAN for s in peel)
+        loops = [s for s in spans if s.frame == frame and s.name == "clip_rounds"]
+        assert len(loops) == 2 and all(by_id[s.parent].name == "raster_clip_peel"
+                                       for s in loops)
         tests = [s for s in spans if s.frame == frame and s.name == "clip_alpha_test"]
         assert len(tests) == 2 * (1 + rounds)
-        assert sum(by_id[s.parent].name.startswith("clip_round_") for s in tests) == 2 * rounds
+        assert sum(by_id[s.parent].name == "clip_rounds" for s in tests) == 2 * rounds
     for s in spans:
         kids = sorted((k.host_open, k.host_close) for k in spans if k.parent == s.id)
         covered = sum(b - a for a, b in kids)  # one thread: the children follow each other

@@ -29,10 +29,35 @@
 // touches nothing. Pure data movement of 32-bit words: every bit of the
 // int channels (-1 is a NaN pattern, small ids are denormals) survives.
 //
+// Rounds (one C call a peel, trt_clip_peel_rounds): every re-race round
+// of a peel launched by a loop on the host side of this file, in the
+// order the port's Python loop (render/frame.py::_clip_rounds_plain)
+// runs them: the worklist, a clear of kernel 1's key buffer, kernel 1
+// (trt_raster_gbuf: plan, race, resolve), the merge and the alpha test
+// (trt_clip_alpha) of the merged winners. No host sync, no allocation:
+// each round writes its own slice of the ids, raced tile ids, seed depths
+// and peel bounds (which the kernel-1 calls recorded for the benchmark's
+// roofline read after the frame), and every round reuses one set of raced
+// planes and keys, which the stream orders.
+//
 // Bound: memory. The worklist reads each tile's tri and ok (5 B a pixel)
 // and writes 8 B a slot pixel; the merge moves 8 B a channel of each
 // live slot's pixel.
 #include "common.cuh"
+
+// csrc/raster_gbuf.cu and csrc/clip_alpha.cu, linked into the same library
+extern "C" int trt_raster_gbuf(const float* recs, const float* big, const int* big_count,
+                               const int* tile_start, const int* tile_ids,
+                               const float* init_depth, const float* max_depth, int k_tiles,
+                               int tiles_x, int num_classes, int pass_class, int segment,
+                               float ndc_sx, float ndc_sy, int pos_derivs, int uv_channels,
+                               unsigned long long* keys, int* tri_out, int* mat_out,
+                               float* fout, cudaStream_t stream);
+extern "C" int trt_clip_alpha(const void* const* channels, const int* ids, int k_slots,
+                              int n_tiles, const int* tex_diffuse, const float* diffuse_factor,
+                              int factor_stride, const float* cutoff, const uint16_t* quads,
+                              int row_elems, const int* meta, int n_images, int meta_stride,
+                              int class_mask, int l_max, uint8_t* ok, cudaStream_t stream);
 
 namespace {
 
@@ -188,6 +213,79 @@ TRT_EXPORT int trt_clip_merge(uint32_t* state, int n_channels, int n_tiles, cons
         for (int c = 0; c < n_channels; ++c) planes.p[c] = static_cast<uint32_t*>(raced[c]);
         peel_merge_kernel<<<k_slots, THREADS, 0, stream>>>(state, n_channels, n_tiles, ok,
                                                            ids, planes);
+    }
+    return trt_launch_status();
+}
+
+// The alpha test's 8 channels (csrc/clip_alpha.cu's order) as planes of
+// the state's layout.
+constexpr int ALPHA_CHANNELS = 8;
+
+// Every re-race round of one peel. state: [n_channels, n_tiles, 8, 128]
+// words (plane depth_plane the depth); ok, init_tiles, pad_tile, t0 as
+// trt_clip_worklist's; caps: [rounds] host ints, each round's slots.
+// Scratch and outputs: flags [n_tiles]; ids, race_ids [sum(caps)] and
+// seeds, max_depths [sum(caps), 8, 128], round r's slice starting at
+// sum(caps[:r]); demand [rounds]; keys: kernel 1's key and plan words for
+// max(caps) slots; raced: n_channels * max(caps) * 8 * 128 words, round
+// r's kernel-1 planes [n_channels, caps[r], 8, 128] at its start (tri,
+// material, then the float channels: the state's order). Kernel 1's
+// operands as trt_raster_gbuf's (the uv channels on); alpha_planes: [8]
+// host ints, the state planes the alpha test reads; the materials and
+// atlas as trt_clip_alpha's.
+TRT_EXPORT int trt_clip_peel_rounds(
+    uint32_t* state, int n_channels, int depth_plane, int n_tiles, uint8_t* ok,
+    const float* init_tiles, const int* pad_tile, int t0, int rounds, const int* caps,
+    int* flags, int* ids, int* race_ids, int* demand, float* seeds, float* max_depths,
+    unsigned long long* keys, uint32_t* raced, const float* recs, const float* big,
+    const int* big_count, const int* tile_start, int tiles_x, int num_classes, int pass_class,
+    int segment, float ndc_sx, float ndc_sy, int pos_derivs, const int* alpha_planes,
+    const int* tex_diffuse, const float* diffuse_factor, int factor_stride,
+    const float* cutoff, const uint16_t* quads, int row_elems, const int* meta, int n_images,
+    int meta_stride, int class_mask, int l_max, cudaStream_t stream) {
+    if (n_channels < 3 || n_channels > MAX_CHANNELS || depth_plane <= 1 ||
+        depth_plane >= n_channels)
+        return (int)cudaErrorInvalidValue;
+    for (int a = 0; a < ALPHA_CHANNELS; ++a)
+        if (alpha_planes[a] < 0 || alpha_planes[a] >= n_channels)
+            return (int)cudaErrorInvalidValue;
+    for (int r = 0; r < rounds; ++r)
+        if (caps[r] < 1) return (int)cudaErrorInvalidValue;
+    const size_t plane = (size_t)n_tiles * TILE_PX;
+    const int* tri = reinterpret_cast<const int*>(state);
+    const float* depth = reinterpret_cast<const float*>(state + depth_plane * plane);
+    size_t at = 0;  // the round's first slot in the per-round slices
+    for (int r = 0; r < rounds; ++r) {
+        const int k = caps[r];
+        int* ids_r = ids + at;
+        int* race_r = race_ids + at;
+        float* seed_r = seeds + at * TILE_PX;
+        float* max_r = max_depths + at * TILE_PX;
+        int err = trt_clip_worklist(tri, depth, ok, init_tiles, pad_tile, n_tiles, t0, k, flags,
+                                    ids_r, race_r, demand + r, seed_r, max_r, stream);
+        if (err != 0) return err;
+        // kernel 1's keys start at 0 (its plan's words follow them)
+        const size_t key_words = (size_t)k * (TILE_PX + 1) + 1;
+        err = (int)cudaMemsetAsync(keys, 0, key_words * sizeof(unsigned long long), stream);
+        if (err != 0) return err;
+        const size_t slot_plane = (size_t)k * TILE_PX;
+        err = trt_raster_gbuf(recs, big, big_count, tile_start, race_r, seed_r, max_r, k,
+                              tiles_x, num_classes, pass_class, segment, ndc_sx, ndc_sy,
+                              pos_derivs, 1, keys, reinterpret_cast<int*>(raced),
+                              reinterpret_cast<int*>(raced + slot_plane),
+                              reinterpret_cast<float*>(raced + 2 * slot_plane), stream);
+        if (err != 0) return err;
+        void* planes[MAX_CHANNELS];
+        for (int c = 0; c < n_channels; ++c) planes[c] = raced + c * slot_plane;
+        err = trt_clip_merge(state, n_channels, n_tiles, ok, ids_r, k, planes, stream);
+        if (err != 0) return err;
+        const void* alpha[ALPHA_CHANNELS];
+        for (int a = 0; a < ALPHA_CHANNELS; ++a) alpha[a] = planes[alpha_planes[a]];
+        err = trt_clip_alpha(alpha, ids_r, k, n_tiles, tex_diffuse, diffuse_factor,
+                             factor_stride, cutoff, quads, row_elems, meta, n_images,
+                             meta_stride, class_mask, l_max, ok, stream);
+        if (err != 0) return err;
+        at += k;
     }
     return trt_launch_status();
 }

@@ -451,6 +451,25 @@ def covered_pairs(payload, tile_ids, tile_start, width, height, pass_class=None,
     return total
 
 
+def payload_operands(payload, tile_start, big_count) -> tuple:
+    """Kernel 1's record operands, checked: (payload rows, big rows,
+    big count as one int32 on the card; both None without a big list)."""
+    rows, big_rows = payload
+    dev = rows.device
+    kernels.check(rows, "payload rows", torch.float32, (rows.shape[0], 128), align=16)
+    kernels.check(tile_start, "tile_start", torch.int32, device=dev)
+    if isinstance(big_count, torch.Tensor):
+        big_count = big_count.to(device=dev, dtype=torch.int32).reshape(1)
+    elif big_count:
+        big_count = torch.tensor([big_count], dtype=torch.int32, device=dev)
+    else:
+        big_count = big_rows = None
+    if big_count is not None:
+        kernels.check(big_rows, "big rows", torch.float32, (big_rows.shape[0], 128),
+                      device=dev, align=16)
+    return rows, big_rows, big_count
+
+
 def _rasterize_cuda(*args, **kwargs) -> dict:
     return _raster_launch(*args, **kwargs)[0]
 
@@ -462,23 +481,12 @@ def _raster_launch(payload, tile_ids, tile_start, big_count, width, height,
     per-pixel keys, then the plan, whose words the CUDA tests read). A
     ``big_count`` tensor stays on the card, where the kernel reads it (no
     host sync)."""
-    rows, big_rows = payload
+    rows, big_rows, big_count = payload_operands(payload, tile_start, big_count)
     dev = rows.device
     k_tiles = tile_ids.shape[0]
     tiles_x = -(-width // TILE_W)
     nc = _num_classes(tile_start, width, height, n_tiles_global)
-    kernels.check(rows, "payload rows", torch.float32, (rows.shape[0], 128), align=16)
-    kernels.check(tile_start, "tile_start", torch.int32, device=dev)
     kernels.check(tile_ids, "tile_ids", torch.int32, (k_tiles,), device=dev)
-    if isinstance(big_count, torch.Tensor):
-        big_count = big_count.to(device=dev, dtype=torch.int32).reshape(1)
-    elif big_count:
-        big_count = torch.tensor([big_count], dtype=torch.int32, device=dev)
-    else:
-        big_count = big_rows = None
-    if big_count is not None:
-        kernels.check(big_rows, "big rows", torch.float32, (big_rows.shape[0], 128),
-                      device=dev, align=16)
     if init_depth_tiles is None:
         init_depth_tiles = torch.zeros((k_tiles, TILE_H, TILE_W), device=dev)
     kernels.check(init_depth_tiles, "init_depth_tiles", torch.float32,
@@ -540,14 +548,24 @@ def rasterize_gbuffer_tiles(
     tiles index bins over a grid padded below the frame: pass that grid's
     tile count as ``n_tiles_global`` (tiles past the frame's bottom hold
     no records and race nothing)."""
+    args, kwargs = kernel_call(payload, tile_ids, tile_start, big_count, width, height,
+                               init_depth_tiles, max_depth_tiles, pass_class, pos_derivs,
+                               uv_channels, n_tiles_global)
+    return KERNEL(payload[0].is_cuda, *args, **kwargs)
+
+
+def kernel_call(payload, tile_ids, tile_start, big_count, width, height,
+                init_depth_tiles=None, max_depth_tiles=None, pass_class=None,
+                pos_derivs=True, uv_channels=True, n_tiles_global=None) -> tuple:
+    """(args, kwargs) of KERNEL's call for rasterize_gbuffer_tiles'
+    arguments, as its recorder keeps them (the clip peel's rounds handle
+    records the kernel-1 calls it launches in this form too)."""
     if n_tiles_global is None:
         n_tiles_global = -(-width // TILE_W) * -(-height // TILE_H)
-    return KERNEL(
-        payload[0].is_cuda, payload, tile_ids, tile_start, big_count, width, height,
-        init_depth_tiles=init_depth_tiles, max_depth_tiles=max_depth_tiles,
-        pass_class=pass_class, pos_derivs=pos_derivs, uv_channels=uv_channels,
-        n_tiles_global=n_tiles_global,
-    )
+    return ((payload, tile_ids, tile_start, big_count, width, height),
+            dict(init_depth_tiles=init_depth_tiles, max_depth_tiles=max_depth_tiles,
+                 pass_class=pass_class, pos_derivs=pos_derivs, uv_channels=uv_channels,
+                 n_tiles_global=n_tiles_global))
 
 
 def gbuffer_from_channels(ch: dict) -> GBuffer:

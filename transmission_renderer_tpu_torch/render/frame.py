@@ -20,7 +20,9 @@ reference:
   whose plain version is _clip_alpha_ok_tiles scattered by tile id; each
   re-race round's worklist and merge over the stacked state one launch
   each of csrc/clip_peel.cu, CLIP_WORKLIST_KERNEL and CLIP_MERGE_KERNEL,
-  whose plain versions are its gather, where and index-put), the
+  whose plain versions are its gather, where and index-put; a peel's
+  re-race rounds one C call, CLIP_ROUNDS_KERNEL, whose plain version is
+  the Python loop of the per-round handles), the
   dense or block-sparse opaque shade (frame.py:1278-1322), and the fused
   sparse transmission path (frame.py:1374-1416, 1486-1528) or, with alpha
   clip, half-res refraction, no tile cap or a width that is not a
@@ -92,6 +94,7 @@ from transmission_renderer_tpu_torch.ops.raster import (
     tile_image,
     untile_image,
 )
+from transmission_renderer_tpu_torch.ops import raster_gbuf
 from transmission_renderer_tpu_torch.ops.raster_gbuf import (
     INT_CHANNELS,
     TILE_H,
@@ -618,26 +621,35 @@ def _clip_alpha_cuda(scene: Scene, ch: dict, ids: torch.Tensor, n_tiles: int,
                           (k, TILE_H, TILE_W), device=dev)
         kernels.check(ids, "ids", torch.int32, (k,), device=dev)
         kernels.check(ok_p, "ok", torch.bool, (n_tiles + 1, TILE_H, TILE_W), device=dev)
-        m = scene.materials
-        n_mat = m.tex_diffuse.shape[0]
-        kernels.check(m.tex_diffuse, "diffuse refs", torch.int32, (n_mat,), device=dev)
-        kernels.check(m.diffuse_factor, "diffuse factors", torch.float32, (n_mat, 4), device=dev)
-        kernels.check(m.alpha_clipping_cutoff, "alpha cutoffs", torch.float32, (n_mat,),
-                      device=dev)
-        kernels.check(scene.atlas_texels, "atlas texels", torch.bfloat16, device=dev)
-        kernels.check(scene.atlas_meta, "atlas meta", torch.int32, device=dev)
-        classes = atlas_classes(scene.atlas_meta)
+        types, operands = _clip_alpha_operands(scene, dev)
         p, i = kernels.VOIDP, kernels.INT
-        fn = kernels.entry("trt_clip_alpha", [
-            ctypes.POINTER(ctypes.c_void_p), p, i, i, p, p, i, p, p, i, p, i, i, i, i, p, p])
+        fn = kernels.entry("trt_clip_alpha",
+                           [ctypes.POINTER(ctypes.c_void_p), p, i, i, *types, p])
         kernels.launch(
             CLIP_ALPHA_KERNEL, fn, (ctypes.c_void_p * 8)(*(t.data_ptr() for t in chans)),
-            kernels.ptr(ids), k, n_tiles, kernels.ptr(m.tex_diffuse),
-            kernels.ptr(m.diffuse_factor), 4, kernels.ptr(m.alpha_clipping_cutoff),
-            kernels.ptr(scene.atlas_texels), scene.atlas_texels.shape[-1],
-            kernels.ptr(scene.atlas_meta), scene.atlas_meta.shape[0],
-            scene.atlas_meta.shape[1], class_mask(classes), max(classes), kernels.ptr(ok_p))
+            kernels.ptr(ids), k, n_tiles, *operands, kernels.ptr(ok_p))
     return ok_p
+
+
+def _clip_alpha_operands(scene: Scene, dev) -> tuple:
+    """The alpha test's material and atlas operands, checked, as
+    csrc/clip_alpha.cu's entries take them: (ctypes types, values)."""
+    m = scene.materials
+    n_mat = m.tex_diffuse.shape[0]
+    kernels.check(m.tex_diffuse, "diffuse refs", torch.int32, (n_mat,), device=dev)
+    kernels.check(m.diffuse_factor, "diffuse factors", torch.float32, (n_mat, 4), device=dev)
+    kernels.check(m.alpha_clipping_cutoff, "alpha cutoffs", torch.float32, (n_mat,),
+                  device=dev)
+    kernels.check(scene.atlas_texels, "atlas texels", torch.bfloat16, device=dev)
+    kernels.check(scene.atlas_meta, "atlas meta", torch.int32, device=dev)
+    classes = atlas_classes(scene.atlas_meta)
+    p, i = kernels.VOIDP, kernels.INT
+    return ((p, p, i, p, p, i, p, i, i, i, i),
+            (kernels.ptr(m.tex_diffuse), kernels.ptr(m.diffuse_factor), 4,
+             kernels.ptr(m.alpha_clipping_cutoff), kernels.ptr(scene.atlas_texels),
+             scene.atlas_texels.shape[-1], kernels.ptr(scene.atlas_meta),
+             scene.atlas_meta.shape[0], scene.atlas_meta.shape[1], class_mask(classes),
+             max(classes)))
 
 
 CLIP_ALPHA_KERNEL = kernels.KernelHandle(
@@ -796,6 +808,110 @@ def _clip_merge(state: torch.Tensor, ok_p: torch.Tensor, ids: torch.Tensor,
     CLIP_MERGE_KERNEL(state.is_cuda, state, ok_p, ids, raced)
 
 
+def _clip_rounds_plain(scene: Scene, state: torch.Tensor, ok_p: torch.Tensor,
+                       init_tiles: torch.Tensor, pad_tile: torch.Tensor, t0: int, caps: tuple,
+                       payload, tile_start: torch.Tensor, big_count, w: int, h: int,
+                       pass_class: int, pos_derivs: bool, n_tiles_global) -> torch.Tensor:
+    """A peel's re-race rounds as a Python loop, one round per cap: the
+    worklist (_clip_worklist), kernel 1 over its slots seeded and bounded
+    by it, the merge (_clip_merge) and the alpha test of the merged
+    winners, each through its handle (their plain versions for CPU
+    tensors, their kernels round by round for CUDA ones). Updates
+    ``state`` and ``ok_p`` in place -> each round's failing tiles
+    [rounds] int32."""
+    n_tiles = state.shape[1]
+    demand = []
+    for cap in caps:
+        ids, race_ids, d, seed, maxd = _clip_worklist(state, ok_p, init_tiles, pad_tile, t0,
+                                                      cap)
+        demand.append(d)
+        new = rasterize_gbuffer_tiles(
+            payload, race_ids, tile_start, big_count, w, h, init_depth_tiles=seed,
+            max_depth_tiles=maxd, pass_class=pass_class, pos_derivs=pos_derivs,
+            n_tiles_global=n_tiles_global)
+        _clip_merge(state, ok_p, ids, new)
+        _clip_alpha_test(scene, new, ids, n_tiles, ok_p)
+    return torch.stack(demand)
+
+
+def _clip_rounds_cuda(scene: Scene, state: torch.Tensor, ok_p: torch.Tensor,
+                      init_tiles: torch.Tensor, pad_tile: torch.Tensor, t0: int, caps: tuple,
+                      payload, tile_start: torch.Tensor, big_count, w: int, h: int,
+                      pass_class: int, pos_derivs: bool, n_tiles_global) -> torch.Tensor:
+    """Call csrc/clip_peel.cu's trt_clip_peel_rounds: what _clip_rounds_plain
+    does, every round from one C call, with no host sync. Each round has
+    its own slice of the ids, raced tile ids, seed depths and peel bounds;
+    kernel 1's output planes and keys are one set that every round reuses.
+    The worklist's, kernel 1's, the merge's and the alpha test's handles
+    count a launch a round, and kernel 1's recorder keeps each round's
+    call as the loop would make it."""
+    dev = state.device
+    n_tiles = state.shape[1]
+    names = _peel_channels(dict.fromkeys(active_channels(pos_derivs)))
+    tile = (n_tiles, TILE_H, TILE_W)
+    kernels.check(state, "peel state", torch.float32, (len(names),) + tile, device=dev)
+    kernels.check(ok_p, "ok", torch.bool, (n_tiles + 1, TILE_H, TILE_W), device=dev)
+    kernels.check(init_tiles, "init tiles", torch.float32, tile, device=dev)
+    kernels.check(pad_tile, "pad tile", torch.int32, (), device=dev)
+    rows, big_rows, big = raster_gbuf.payload_operands(payload, tile_start, big_count)
+    alpha_types, alpha_operands = _clip_alpha_operands(scene, dev)
+    rounds, slots, widest = len(caps), sum(caps), max(caps)
+    px = TILE_H * TILE_W
+    ints = torch.empty(n_tiles + 2 * slots + rounds, dtype=torch.int32, device=dev)
+    flags, ids, race_ids, demand = ints.split((n_tiles, slots, slots, rounds))
+    depths = torch.empty((2, slots, TILE_H, TILE_W), dtype=torch.float32, device=dev)
+    raced = torch.empty(len(names) * widest * px, dtype=torch.float32, device=dev)
+    keys = torch.empty(widest * (px + 1) + 1, dtype=torch.int64, device=dev)
+    p, i, f = kernels.VOIDP, kernels.INT, kernels.FLOAT
+    host_ints = ctypes.POINTER(ctypes.c_int)
+    fn = kernels.entry("trt_clip_peel_rounds", [
+        p, i, i, i, p, p, p, i, i, host_ints, p, p, p, p, p, p, p, p,
+        p, p, p, p, i, i, i, i, f, f, i, host_ints, *alpha_types])
+    kernels.launch(
+        CLIP_ROUNDS_KERNEL, fn, kernels.ptr(state), len(names), PEEL_DEPTH, n_tiles,
+        kernels.ptr(ok_p), kernels.ptr(init_tiles), kernels.ptr(pad_tile), t0, rounds,
+        (ctypes.c_int * rounds)(*caps), kernels.ptr(flags), kernels.ptr(ids),
+        kernels.ptr(race_ids), kernels.ptr(demand), kernels.ptr(depths[0]),
+        kernels.ptr(depths[1]), kernels.ptr(keys), kernels.ptr(raced), kernels.ptr(rows),
+        kernels.ptr(big_rows), kernels.ptr(big), kernels.ptr(tile_start), -(-w // TILE_W),
+        raster_gbuf._num_classes(tile_start, w, h, n_tiles_global), pass_class,
+        raster_gbuf.SEG, 2.0 / w, 2.0 / h, int(pos_derivs),
+        (ctypes.c_int * 8)(*(names.index(n) for n in CLIP_ALPHA_CHANNELS)), *alpha_operands)
+    for handle in (raster_gbuf.KERNEL, CLIP_WORKLIST_KERNEL, CLIP_MERGE_KERNEL,
+                   CLIP_ALPHA_KERNEL):
+        handle.launches += rounds
+    recorder = raster_gbuf.KERNEL.recorder
+    if recorder is not None:
+        at = 0
+        for cap in caps:
+            recorder.append(raster_gbuf.kernel_call(
+                payload, race_ids[at : at + cap], tile_start, big_count, w, h,
+                depths[0, at : at + cap], depths[1, at : at + cap], pass_class, pos_derivs,
+                n_tiles_global=n_tiles_global))
+            at += cap
+    return demand
+
+
+CLIP_ROUNDS_KERNEL = kernels.KernelHandle(
+    "clip_rounds", "transmission_renderer_tpu_torch/csrc/clip_peel.cu",
+    "none: the peel's re-race rounds are an XLA loop, "
+    "transmission_renderer_tpu/render/frame.py:835-866 (_rasterize_clip_peeled)",
+    cuda=_clip_rounds_cuda, plain=_clip_rounds_plain,
+)
+
+
+def _clip_rounds(scene: Scene, state: torch.Tensor, ok_p: torch.Tensor,
+                 init_tiles: torch.Tensor, pad_tile: torch.Tensor, t0: int, caps: tuple,
+                 payload, tile_start: torch.Tensor, big_count, w: int, h: int,
+                 pass_class: int, pos_derivs: bool, n_tiles_global) -> torch.Tensor:
+    """A peel's re-race rounds (one per cap of ``caps``) over its state and
+    ok, in place: the C entry for CUDA tensors, _clip_rounds_plain
+    otherwise -> each round's failing tiles [rounds] int32."""
+    return CLIP_ROUNDS_KERNEL(state.is_cuda, scene, state, ok_p, init_tiles, pad_tile, t0,
+                              caps, payload, tile_start, big_count, w, h, pass_class,
+                              pos_derivs, n_tiles_global)
+
+
 def vis_alpha(scene: Scene, dl: DrawList, uvs: torch.Tensor) -> VisAlpha:
     """The visibility raster's alpha test inputs (the reference's
     _make_alpha_fn, frame.py:886-954) from the scene, the draw list and
@@ -905,7 +1021,9 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     (tri and material as int32 bits, then kernel 1's float channels). A
     round is its worklist (_clip_worklist), kernel 1, the merge
     (_clip_merge) and the alpha test, with no host sync: pure data
-    movement, so every bit of a channel survives the rounds."""
+    movement, so every bit of a channel survives the rounds. The re-race
+    rounds run from one call (_clip_rounds: on the card one C call
+    launches every round)."""
     tiles_x = -(-w // TILE_W)
     t0, tiles_y, n_tiles_global = band or (0, -(-h // TILE_H), None)
     n_tiles = tiles_x * tiles_y  # the tiles peeled; state rows are local
@@ -936,28 +1054,23 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     if not isinstance(fracs, (tuple, list)):
         fracs = (fracs,)
     caps = [max(int(np.ceil(n_tiles * f)), 1) for f in fracs]
+    # empty slots race the class's emptiest tile, not the last one (whose
+    # record run every empty slot would re-walk)
     nc = (bins.tile_start.shape[0] - 1) // (n_tiles_global or n_tiles)
     peel_base = all_ids.long() * nc + pass_class
     peel_pad_tile = torch.argmin(bins.tile_start[peel_base + 1]
                                  - bins.tile_start[peel_base]).to(torch.int32)
     names = _peel_channels(ch)
     state = torch.stack([ch[n].view(torch.float32) for n in names])
-    round_demand, round_caps = [], []
-    for rnd in range(1, max(config.alpha_clip_rounds, 1)):
-        cap = caps[min(rnd - 1, len(caps) - 1)]
-        round_caps.append(cap)
-        with pass_scope(f"clip_round_{rnd}"):
-            # empty slots race the class's emptiest tile, not the last one
-            # (whose record run every empty slot would re-walk)
-            ids, race_ids, demand, seed, maxd = _clip_worklist(
-                state, ok_p, init_tiles, peel_pad_tile, t0, cap)
-            round_demand.append(demand)
-            new = rasterize_gbuffer_tiles(
-                payload, race_ids, bins.tile_start, big_count, w, h,
-                init_depth_tiles=seed, max_depth_tiles=maxd,
-                pass_class=pass_class, pos_derivs=pos_derivs, n_tiles_global=n_tiles_global)
-            _clip_merge(state, ok_p, ids, new)
-            _clip_alpha_test(scene, new, ids, n_tiles, ok_p)
+    round_caps = tuple(caps[min(rnd - 1, len(caps) - 1)]
+                       for rnd in range(1, max(config.alpha_clip_rounds, 1)))
+    round_demand = ()
+    if round_caps:
+        with pass_scope("clip_rounds"):
+            round_demand = _clip_rounds(
+                scene, state, ok_p, init_tiles, peel_pad_tile, t0, round_caps, payload,
+                bins.tile_start, big_count, w, h, pass_class, pos_derivs,
+                n_tiles_global).unbind(0)
     ch = {n: state[c].view(torch.int32) if n in INT_CHANNELS else state[c]
           for c, n in enumerate(names)}
     failed = (ch["tri"] >= 0) & ~ok_p[:n_tiles]
@@ -967,7 +1080,7 @@ def _rasterize_clip_peeled(scene: Scene, payload, bins, big_count, pass_class: i
     g_clip = gbuffer_from_channels({
         n: untile_image(a, tiles_x, tiles_y, TILE_W, TILE_H, w, out_h) for n, a in ch.items()})
     return (_merge_gbuffers(base, g_clip), unresolved, clip_tiles,
-            (tuple(round_demand), tuple(round_caps)),
+            (round_demand, round_caps),
             untile_image(failed, tiles_x, tiles_y, TILE_W, TILE_H, w, out_h))
 
 

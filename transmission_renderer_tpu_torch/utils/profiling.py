@@ -58,8 +58,8 @@ PASS_NAMES = (
 )
 # the alpha-clip depth peel's ranges, inside each raster_clip_peel (after
 # raster_opaque and after raster_transmission): its alpha tests and its
-# re-race rounds (clip_round_1 .. clip_round_{alpha_clip_rounds - 1})
-CLIP_PASS_NAMES = ("raster_clip_peel", "clip_alpha_test")
+# re-race rounds (one clip_rounds range around every round)
+CLIP_PASS_NAMES = ("raster_clip_peel", "clip_alpha_test", "clip_rounds")
 # the range render_frame opens around a whole frame: one span per frame,
 # each numbered by the tracer
 FRAME_SPAN = "render_frame"
